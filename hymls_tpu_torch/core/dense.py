@@ -1,0 +1,91 @@
+"""Dense inverses and the single large dense factorization.
+
+Torch counterpart of hymls_tpu/core/dense.py on the branches its CPU
+runs take (`on_accelerator()` is false there): library inverses
+(`torch.linalg.inv`, LAPACK on the CPU and cuSOLVER on the card) with
+a residual-adaptive Newton polish in f64, and an LU factorization for
+the coarse system above 2048 unknowns.  The TPU workarounds of the
+reference (one-hot Gauss-Jordan, the Newton-Schulz-polished seed for
+the coarse inverse, chunked batches) are not ported: the card has
+native f32 and f64 LU.
+"""
+from __future__ import annotations
+
+import torch
+
+# below this size the explicit inverse is cheap; above it the coarse
+# system keeps its LU factors (hymls_tpu/core/dense.py:_LU_THRESHOLD)
+_LU_THRESHOLD = 2048
+
+
+def _matmul(A, B):
+    """A @ B with the operands promoted to a common dtype, as JAX
+    promotes (f32 factors applied to an f64 vector compute in f64)."""
+    if A.dtype != B.dtype:
+        dt = torch.promote_types(A.dtype, B.dtype)
+        A, B = A.to(dt), B.to(dt)
+    return torch.matmul(A, B)
+
+
+def _batched_inv(A):
+    """(Batched) dense inverse."""
+    return torch.linalg.inv(A)
+
+
+def _newton_refine(A, X, max_steps: int, tol: float = 1e-13):
+    """Residual-adaptive Newton iteration X <- X + X(I - AX), until
+    max|I - AX| <= tol or `max_steps`; a step that does not lower the
+    residual is discarded (the reference's divergence guard).  The
+    loop condition is read on the host, one scalar per step."""
+    if A.numel() == 0:
+        return X
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+    def resid(X):
+        return torch.max(torch.abs(eye - torch.matmul(A, X)))
+
+    r = resid(X)
+    it = 0
+    while it < max_steps and bool(r > tol):
+        R = eye - torch.matmul(A, X)
+        Xn = X + torch.matmul(X, R)
+        rn = resid(Xn)
+        keep = rn <= r
+        X = torch.where(keep, Xn, X)
+        r = torch.where(keep, rn, r)
+        it += 1
+    return X
+
+
+def inv_newton(A, refine: int = 6):
+    """(Batched) dense inverse; in f64 polished by up to `refine`
+    residual-adaptive Newton steps (explicit inverses of
+    ill-conditioned blocks lose ~cond*eps, the polish recovers
+    residual-level accuracy)."""
+    X = _batched_inv(A)
+    if A.dtype == torch.float64 and refine:
+        X = _newton_refine(A, X, max_steps=refine)
+    return X
+
+
+def dense_factor(A) -> dict:
+    """Factor one (unbatched) dense system for repeated solves: the
+    inverse up to 2048 unknowns, LU factors above."""
+    n = A.shape[-1]
+    if n <= _LU_THRESHOLD or A.dim() != 2:
+        return {"inv": inv_newton(A)}
+    lu, piv = torch.linalg.lu_factor(A)
+    return {"lu": lu, "piv": piv}
+
+
+def dense_solve(fac: dict, rhs):
+    """Solve against a `dense_factor` result; rhs (n,) or (n, k)."""
+    if "inv" in fac:
+        return _matmul(fac["inv"], rhs)
+    lu = fac["lu"]
+    if rhs.dtype != lu.dtype:
+        dt = torch.promote_types(rhs.dtype, lu.dtype)
+        lu, rhs = lu.to(dt), rhs.to(dt)
+    if rhs.dim() == 1:
+        return torch.linalg.lu_solve(lu, fac["piv"], rhs[:, None])[:, 0]
+    return torch.linalg.lu_solve(lu, fac["piv"], rhs)

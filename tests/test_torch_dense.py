@@ -1,0 +1,92 @@
+"""The port's dense inverses and coarse factorization against
+hymls_tpu.core.dense on the CPU (where both take library LU inverses,
+polished by Newton steps in f64).  Tolerances: 1e-10 relative in f64,
+1e-5 in f32 on well-conditioned inputs."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from hymls_tpu.core import dense as jdense
+from hymls_tpu_torch.core import dense as tdense
+
+
+def _spd_with_cond(n, cond, rng, batch=None):
+    def one():
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        d = np.logspace(0, -np.log10(cond), n)
+        return (Q * d) @ Q.T
+    if batch is None:
+        return one()
+    return np.stack([one() for _ in range(batch)])
+
+
+def _resid(A, X):
+    return float(np.max(np.abs(np.eye(A.shape[-1]) - A @ X)))
+
+
+def _rel(ref, got):
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(ref - np.asarray(got, np.float64)).max()
+                 / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("cond", [1e2, 1e5, 1e7])
+def test_inv_newton_f64(cond):
+    rng = np.random.default_rng(42)
+    A = _spd_with_cond(24, cond, rng, batch=8)
+    Xj = np.asarray(jdense.inv_newton(jnp.asarray(A)))
+    Xt = tdense.inv_newton(torch.as_tensor(A)).numpy()
+    # both polish to the attainable residual floor (~cond * eps64)
+    assert _resid(A, Xt) < 10 * _resid(A, Xj) + 1e-13
+    assert _rel(Xj, Xt) <= 1e-10 * cond
+
+
+def test_inv_newton_f32():
+    rng = np.random.default_rng(3)
+    A = _spd_with_cond(16, 10.0, rng, batch=4).astype(np.float32)
+    Xj = np.asarray(jdense.inv_newton(jnp.asarray(A)))
+    Xt = tdense.inv_newton(torch.as_tensor(A))
+    assert Xt.dtype == torch.float32
+    assert _rel(Xj, Xt.numpy()) <= 1e-5
+
+
+def test_newton_divergence_guard():
+    """Beyond the f64 seed's reach the guard keeps the best iterate."""
+    rng = np.random.default_rng(7)
+    A = torch.as_tensor(_spd_with_cond(24, 1e10, rng))
+    X0 = torch.linalg.inv(A.float()).double()
+    r0 = _resid(A.numpy(), X0.numpy())
+    X = tdense._newton_refine(A, X0, max_steps=6)
+    assert torch.isfinite(X).all()
+    assert _resid(A.numpy(), X.numpy()) <= r0 * (1 + 1e-9)
+
+
+@pytest.mark.parametrize("n", [40, 2049])
+def test_dense_factor_and_solve(n):
+    """The inverse at n <= 2048, LU factors above; both solve like the
+    reference."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n)) + n * np.eye(n)
+    rhs = rng.standard_normal(n)
+    fj = jdense.dense_factor(jnp.asarray(A))
+    ft = tdense.dense_factor(torch.as_tensor(A))
+    assert set(ft) == ({"inv"} if n <= 2048 else {"lu", "piv"})
+    assert set(ft) == set(fj)
+    yj = np.asarray(jdense.dense_solve(fj, jnp.asarray(rhs)))
+    yt = tdense.dense_solve(ft, torch.as_tensor(rhs)).numpy()
+    assert _rel(yj, yt) <= 1e-10
+    Y = tdense.dense_solve(ft, torch.as_tensor(rhs[:, None].repeat(2, 1)))
+    assert tuple(Y.shape) == (n, 2)
+    assert _rel(yt, Y[:, 1].numpy()) <= 1e-12
+
+
+def test_dense_solve_promotes_f32_factor():
+    """An f32 inverse applied to an f64 vector computes in f64, as JAX
+    promotes (the f64 Solver on the mixed solver's f32 preconditioner)."""
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((30, 30)) + 30 * np.eye(30)
+    ft = tdense.dense_factor(torch.as_tensor(A, dtype=torch.float32))
+    y = tdense.dense_solve(ft, torch.as_tensor(rng.standard_normal(30)))
+    assert y.dtype == torch.float64

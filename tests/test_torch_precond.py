@@ -1,0 +1,201 @@
+"""The port's preconditioner against the JAX package's.
+
+Same matrix, parameters and test vector through
+`hymls_tpu.Preconditioner` (generic apply) and
+`hymls_tpu_torch.Preconditioner`: the plans must be identical, every
+per-level factor (A11inv, G, A21, blkinv, sc) and the coarse factor
+must agree to 1e-10 relative in f64 (in f32 see below), and so must
+M^{-1} b.  The port's apply run on the
+reference's own plans and factors (carried over by
+hymls_tpu_torch.convert) must agree to 1e-12 in f64.
+
+In f32 the two packages round differently (LAPACK through torch vs
+XLA's own LU): on well-conditioned levels they agree to 1e-5, but on
+the second level of skew Stokes and the cavity's coarse system each
+package's f32 factors sit ~1e-4 from the f64 ones.  There the port is
+held to the reference's own f32 accuracy: within 1e-5 of the f64
+reference, or no further from it than twice the reference's f32 error.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import hymls_tpu as H
+import hymls_tpu_torch as T
+from hymls_tpu_torch.convert import plans_from_numpy, factors_from_numpy
+from hymls_tpu_torch.stencils import create_matrix, create_testvector
+from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+FACTOR_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
+
+
+def _cfg(eqn, nx, levels, partitioner="Cartesian", **prec):
+    return {"Problem": {"Equations": eqn, "Dimension": 2, "nx": nx,
+                        "ny": nx},
+            "Solver": {"Krylov Method": "GMRES",
+                       "Iterative Solver": {"Maximum Iterations": 100,
+                                            "Convergence Tolerance": 1e-10}},
+            "Preconditioner": {"Separator Length": 4,
+                               "Number of Levels": levels,
+                               "Partitioner": partitioner,
+                               "Structured Apply": False, **prec}}
+
+
+CASES = {
+    "laplace16_L1": (lambda: _cfg("Laplace", 16, 1), None),
+    "laplace32_L2": (lambda: _cfg("Laplace", 32, 2), None),
+    # coarse system of 13 unknowns
+    "stokes16_skew_L2": (lambda: _cfg("Stokes-C", 16, 2, "Skew Cartesian"),
+                         None),
+    "cavity16_re1000_L1": (lambda: _cfg("Stokes-C", 16, 1),
+                           lambda: cavity_jacobian(16, 16, re=1000.0)),
+    # the coarse system is empty (n = 0)
+    "laplace16_L2": (lambda: _cfg("Laplace", 16, 2), None),
+}
+
+
+def _problem(name):
+    cfg, make_K = CASES[name]
+    d = cfg()
+    K = (make_K() if make_K else create_matrix(T.Params(d))).tocsr()
+    tv = create_testvector(T.Params(d), K)
+    return d, K, tv
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(name, dtype):
+    """(K, reference, port) preconditioners, computed; built once per
+    case and dtype and only read by the tests."""
+    d, K, tv = _problem(name)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    Pj = H.Preconditioner(K, H.Params(d), testvector=tv, dtype=jdt).compute()
+    Pt = T.Preconditioner(K, T.Params(d), testvector=tv, dtype=dtype,
+                          device="cpu").compute()
+    return K, Pj, Pt
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    assert a.shape == b.shape
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+
+
+def _np_tree(t):
+    if isinstance(t, dict):
+        return {k: _np_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_np_tree(v) for v in t]
+    return np.asarray(t)
+
+
+def _agree(ref64, ref, port, dtype, what):
+    """f64: port within 1e-10 of the reference.  f32: port within 1e-5
+    of the f64 reference, or within twice the reference's own f32
+    error (see the module docstring)."""
+    port = port.numpy()
+    if dtype == torch.float64:
+        err = _rel(ref, port)
+        assert err <= 1e-10, f"{what}: rel err {err:.2e}"
+        return
+    err = _rel(ref64, port)
+    bound = max(1e-5, 2.0 * _rel(ref64, ref))
+    assert err <= bound, f"{what}: f32 err {err:.2e} > {bound:.2e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_factors_match_reference(name, dtype):
+    K, Pj, Pt = _pair(name, dtype)
+    _, Pj64, _ = _pair(name, torch.float64) if dtype == torch.float32 \
+        else (K, Pj, Pt)
+    fj, ft, f64 = Pj._factors, Pt._factors, Pj64._factors
+    assert len(fj["levels"]) == len(ft["levels"])
+    for lev, (a, b, t) in enumerate(zip(fj["levels"], ft["levels"],
+                                        f64["levels"])):
+        for key in FACTOR_KEYS:
+            assert b[key].dtype == dtype
+            _agree(t[key], a[key], b[key], dtype, f"level {lev} {key}")
+    assert Pj.coarse_plan.n == Pt.coarse_plan.n
+    _agree(f64["coarse"]["inv"], fj["coarse"]["inv"], ft["coarse"]["inv"],
+           dtype, "coarse")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plans_identical(name):
+    """Both packages build the same plans from the same host code."""
+    d, K, tv = _problem(name)
+    Pj = H.Preconditioner(K, H.Params(d), testvector=tv)
+    Pt = T.Preconditioner(K, T.Params(d), testvector=tv, device="cpu")
+    levels, coarse = plans_from_numpy(_np_tree(Pj._dplans),
+                                      _np_tree(Pj._dcoarse), device="cpu")
+    assert len(levels) == len(Pt._dplans)
+    for a, b in zip(levels, Pt._dplans):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for k in coarse:
+        assert torch.equal(coarse[k], Pt._dcoarse[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["laplace32_L2", "stokes16_skew_L2",
+                                  "cavity16_re1000_L1"])
+def test_apply_inverse_matches_reference(name, dtype):
+    K, Pj, Pt = _pair(name, dtype)
+    _, Pj64, _ = _pair(name, torch.float64) if dtype == torch.float32 \
+        else (K, Pj, Pt)
+    b = np.random.default_rng(3).standard_normal(K.shape[0])
+    yt = Pt.apply_inverse(b)
+    assert yt.dtype == dtype
+    _agree(np.asarray(Pj64.apply_inverse(b)), np.asarray(Pj.apply_inverse(b)),
+           yt, dtype, "apply")
+
+
+@pytest.mark.parametrize("name", ["laplace16_L1", "laplace32_L2",
+                                  "stokes16_skew_L2", "laplace16_L2"])
+def test_apply_on_reference_factors(name):
+    """The port's V-cycle on the reference's own plans and factors."""
+    K, Pj, Pt = _pair(name, torch.float64)
+    dplans, _ = plans_from_numpy(_np_tree(Pj._dplans),
+                                 _np_tree(Pj._dcoarse), device="cpu")
+    factors = factors_from_numpy(_np_tree(Pj._prune_factors(Pj._factors)),
+                                 device="cpu")
+    b = np.random.default_rng(4).standard_normal(K.shape[0])
+    yj = np.asarray(Pj.apply_inverse(b))
+    yt = Pt.apply_fn(factors, dplans, torch.as_tensor(b))
+    assert _rel(yj, yt.numpy()) <= 1e-12
+
+
+def test_empty_coarse_system():
+    """Laplace 16^2 L=2 Cartesian leaves no coarse unknowns; the apply
+    still works and agrees with the reference."""
+    K, Pj, Pt = _pair("laplace16_L2", torch.float64)
+    assert Pt.coarse_plan.n == 0
+    assert tuple(Pt._factors["coarse"]["inv"].shape) == (0, 0)
+    b = np.random.default_rng(5).standard_normal(K.shape[0])
+    assert _rel(np.asarray(Pj.apply_inverse(b)),
+                Pt.apply_inverse(b).numpy()) <= 1e-10
+
+
+@pytest.mark.parametrize("prec,item", [
+    ({"Number of Levels": 0}, "M9"),
+    ({"Structured Apply": True}, "M8"),
+    ({"Preconditioner Variant": "Domain Decomposition"}, "M9"),
+    ({"Apply Dropping": False}, "M9"),
+    ({"Factor Precision": "f64"}, "M9"),
+])
+def test_unported_options_raise(prec, item):
+    d = _cfg("Laplace", 16, 1)
+    d["Preconditioner"].update(prec)
+    K = create_matrix(T.Params(d))
+    with pytest.raises(NotImplementedError, match=item):
+        T.Preconditioner(K, T.Params(d), device="cpu")
