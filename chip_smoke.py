@@ -8,20 +8,39 @@ raises on failure (nonzero exit, no result line):
 
   1. device: CUDA must be present; prints the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compiles every kernel of hymls_tpu_torch/csrc with nvcc,
-     one process per source, all started together;
+  2. build: compiles every kernel of hymls_tpu_torch/csrc (dia_spmv.cu,
+     dense_matvec.cu) with nvcc, one process per source, all started
+     together;
   3. kernels: each kernel against its plain torch version on the card,
-     at the main path's shapes (cavity64: 19 bands x 12288) and on a
-     ragged case (n = 577), in f32 and f64, with both times;
-  4. main path: cavity64_Re1000 (synthetic Jacobian, bench.py's
-     parameters, generic apply): IterativeRefinementSolver on cuda,
-     compute() then newton_step(); true f64 relres <= 1e-11, inner f32
-     iterations within 2 and f64 GMRES iterations within 1 of the CPU
-     anchors in PERF.md; the DIA kernel must have been launched;
-  5. times of compute() and newton_step().
+     with both times (CUDA events) -- the DIA SpMV at the main path's
+     shape (cavity64: 19 bands x 12288) and a ragged one (n = 577), in
+     f32 and f64; the dense matvec at the probe's n = 2048 and 8192 and
+     the ragged n = 2047 and 300 (relative tolerance 1e-5, f32);
+  4. probe path: the loop-pathology probe
+     (hymls_tpu_torch.tools.loop_pathology_bench) at n = 2048, every
+     variant, and its two-matvec variants at n = 8192 (beyond L2), with
+     the measured copy-bandwidth floors; each kernel variant's final
+     iterate must agree with its torch.matmul twin's, and the dense
+     matvec kernel must have been launched.  Its launch count is the
+     wrapper's calls while the CUDA graphs were captured and warmed up;
+     each graph replay runs those launches again on the device without
+     counting them;
+  5. main path: cavity64_Re1000 (synthetic Jacobian, bench.py's
+     parameters, 'Structured Apply' "Auto"): the structured program
+     must be active; IterativeRefinementSolver on cuda, compute() then
+     newton_step(); true f64 relres <= 1e-11, inner f32 iterations
+     within 2 and f64 GMRES iterations within 1 of the CPU anchors in
+     PERF.md; the DIA kernel must have been launched;
+  6. generic path: the same with 'Structured Apply' False, the same
+     anchors;
+  7. times of compute() (and the structured repack) and newton_step()
+     for both applies, interleaved inside this one call; kernel
+     launches per step and per apply (torch.profiler), host issue and
+     device time per V-cycle apply.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+Each of the paths 4-6 is driven with the kernels' launch counts set to
+0 just before it and read just after.  The line before the last is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -35,14 +54,18 @@ import time
 import numpy as np
 import torch
 
-# CPU anchors of the slice on synthetic cavity64_Re1000, generic apply
-# (PERF.md): inner f32 iterations of the IR Newton step, and the
-# iterations of the plain f64 GMRES solve
+# CPU anchors of the JAX package on synthetic cavity64_Re1000, the same
+# on its structured and generic applies (PERF.md): inner f32 iterations
+# of the IR Newton step, and the iterations of the plain f64 GMRES solve
 ANCHOR_INNER = 75
 ANCHOR_F64 = 72
 RELRES_OK = 1e-11
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+# dense matvec: f32 sums of up to 8192 products in another order than
+# cuBLAS
+MV_TOL = 1e-5
+MV_SIZES = (2048, 8192, 2047, 300)
 
 
 def log(msg: str) -> None:
@@ -56,9 +79,9 @@ def cavity64():
     return K, b
 
 
-def cavity64_params():
-    """bench.py:_stokes_params(64, 2, 1, "Cartesian") with the generic
-    apply."""
+def cavity64_params(structured="Auto"):
+    """bench.py:_stokes_params(64, 2, 1, "Cartesian"), with the given
+    'Structured Apply' setting."""
     from hymls_tpu_torch import Params
     return Params({
         "Problem": {"Equations": "Stokes-C", "Dimension": 2, "nx": 64,
@@ -71,7 +94,7 @@ def cavity64_params():
         "Preconditioner": {"Partitioner": "Cartesian",
                            "Separator Length": 4,
                            "Number of Levels": 1,
-                           "Structured Apply": False},
+                           "Structured Apply": structured},
     })
 
 
@@ -157,14 +180,70 @@ def check_dia_kernel(device):
     return rec
 
 
-def drive_main_path(device):
-    """Phase 4: the IR Newton step on cavity64_Re1000; returns the
-    solver, the result and the checks' numbers."""
+def check_dense_matvec(device):
+    """Phase 3: the dense matvec kernel against its plain version on
+    the card, at the probe's shape and on ragged ones."""
+    from hymls_tpu_torch.ops.dense_matvec import (dense_matvec,
+                                                  dense_matvec_reference)
+
+    rng = np.random.default_rng(12)
+    rec = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for n in MV_SIZES:
+        M = torch.as_tensor(rng.standard_normal((n, n)) / np.sqrt(n),
+                            dtype=torch.float32, device=device)
+        x = torch.as_tensor(rng.standard_normal((n, 1)),
+                            dtype=torch.float32, device=device)
+        y = dense_matvec(M, x)
+        y_ref = dense_matvec_reference(M, x)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        rel = err / max(float(y_ref.abs().max()), 1e-300)
+        ms = event_ms(lambda: dense_matvec(M, x))
+        plain_ms = event_ms(lambda: dense_matvec_reference(M, x))
+        log(f"dense_matvec n={n}: max|y-y_ref|={err:.3e} rel={rel:.3e} "
+            f"(tol {MV_TOL:g}); kernel {ms * 1e3:.2f} us, plain torch "
+            f"{plain_ms * 1e3:.2f} us per call")
+        if tuple(y.shape) != (n, 1) or not bool(torch.isfinite(y).all()) \
+                or not rel <= MV_TOL:
+            raise RuntimeError(f"dense_matvec n={n} disagrees with its "
+                               f"plain version: rel err {rel:.3e}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        rec[n] = {"ms": ms, "plain_ms": plain_ms}
+    return rec
+
+
+def drive_probe(device):
+    """Phase 4: the loop-pathology probe; returns ms per iteration per
+    variant at n = 2048, the n = 8192 two-matvec variants, and the
+    floors."""
+    from hymls_tpu_torch.tools import loop_pathology_bench as lp
+
+    fl = lp.floors(lp.N, device=device)
+    res, outs = lp.run_probe(lp.N, device=device)
+    big, outs_big = lp.run_probe(8192, ("torch2", "kernel2"), device=device)
+    log(f"probe: copy bandwidth {fl['bw_32MB'] / 1e9:.1f} GB/s on 32 MB, "
+        f"{fl['bw_256MB'] / 1e9:.1f} GB/s on 256 MB; floor of the "
+        f"2-matvec body {fl['floor_ms']:.4f} ms at n = {lp.N}, "
+        f"{fl['floor_8192_ms']:.4f} ms at n = 8192")
+    for n, r, o in ((lp.N, res, outs), (8192, big, outs_big)):
+        for k, v in r.items():
+            log(f"probe n={n} {k:10s} {v:.4f} ms/iter")
+        for k, gap in lp.iterate_gaps(o).items():
+            log(f"probe n={n} {k}: final iterate {gap:.3e} from "
+                f"{lp.TWINS[k]}'s (tol {lp.ITERATE_TOL:g})")
+    return res, big, fl
+
+
+def drive_main_path(device, structured):
+    """Phases 5-6: the IR Newton step on cavity64_Re1000 with the given
+    'Structured Apply' setting; returns the solver, the result and the
+    checks' numbers."""
     from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
     from hymls_tpu_torch.stencils import create_testvector
 
     K, b = cavity64()
-    params = cavity64_params()
+    params = cavity64_params(structured)
     tv = create_testvector(params, K)
     t0 = time.perf_counter()
     S = IterativeRefinementSolver(K, params, testvector=tv, device=device)
@@ -174,6 +253,162 @@ def drive_main_path(device):
     x = res.x.cpu().numpy()
     relres = float(np.linalg.norm(K @ x - b) / np.linalg.norm(b))
     return K, b, S, res, relres, t_init
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count set to 0, just before a path runs."""
+    from hymls_tpu_torch.ops.dense_matvec import dense_matvec
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    dia_matvec.launches = dense_matvec.launches = 0
+
+
+def check_main_path(device, structured, tag):
+    """Drive one path of phases 5-6 with the launch counts set to 0
+    just before it; check its anchors; returns (K, b, S, launches)."""
+    from hymls_tpu_torch import Solver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+
+    reset_counts()
+    t0 = time.perf_counter()
+    K, b, S, res, relres, t_init = drive_main_path(device, structured)
+    torch.cuda.synchronize()
+    launches = dia_matvec.launches
+    P = S.precond
+    log(f"{tag} path: n={K.shape[0]} nnz={K.nnz} "
+        f"bands={len(S.op64.offsets)} coarse n={P.coarse_plan.n}; "
+        f"structured program active {P._structured_active} "
+        f"({P._structured_reason or 'detected'}); setup {t_init:.2f} s, "
+        f"first compute+newton_step "
+        f"{time.perf_counter() - t0 - t_init:.2f} s")
+    log(f"{tag} newton_step: inner f32 iterations {res.iters} (anchor "
+        f"{ANCHOR_INNER}), true f64 relres {relres:.3e}, converged "
+        f"{res.converged}; dia_spmv launches {launches}")
+    if P._structured_active != (structured is not False):
+        raise RuntimeError(f"{tag} path: structured program active is "
+                           f"{P._structured_active} "
+                           f"({P._structured_reason})")
+    x = res.x
+    if tuple(x.shape) != (K.shape[0],) or x.dtype != torch.float64 or \
+            not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"{tag} newton_step returned a malformed "
+                           f"solution")
+    if not relres <= RELRES_OK:
+        raise RuntimeError(f"{tag}: relres {relres:.3e} > {RELRES_OK:g}")
+    if abs(res.iters - ANCHOR_INNER) > 2:
+        raise RuntimeError(f"{tag}: inner iterations {res.iters} not "
+                           f"within 2 of the CPU anchor {ANCHOR_INNER}")
+    if launches <= 0:
+        raise RuntimeError(f"the {tag} path never launched the dia_spmv "
+                           f"kernel")
+
+    S64 = Solver(K, P, cavity64_params(structured), dtype=torch.float64,
+                 device=device)
+    x64, r64 = S64.apply_inverse(b)
+    rel64 = float(np.linalg.norm(K @ x64.cpu().numpy() - b)
+                  / np.linalg.norm(b))
+    log(f"{tag} f64 GMRES: {r64.iters} iterations (anchor {ANCHOR_F64}), "
+        f"true relres {rel64:.3e}")
+    if abs(r64.iters - ANCHOR_F64) > 1 or not rel64 <= RELRES_OK:
+        raise RuntimeError(f"{tag} f64 GMRES: {r64.iters} iterations, "
+                           f"relres {rel64:.3e}")
+    return K, b, S, launches
+
+
+def device_events(fn):
+    """(device events, of which memcpy/memset, device busy us) of one
+    call of `fn`, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = n_mem = 0
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            n_mem += e.name.startswith(("Memcpy", "Memset"))
+            busy += e.time_range.elapsed_us()
+    return n, n_mem, busy
+
+
+def time_paths(solvers, b, rounds: int = 3):
+    """Phase 7: both applies timed inside one call, interleaved (A, B,
+    B, A per round) so that drift in the host's speed falls on both
+    alike.  Per path: step times, the structured repack, launches per
+    step / apply / inner iteration, host issue and device time per
+    V-cycle apply."""
+    tags = list(solvers)
+    order = tags + tags[::-1]
+    v = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        b.shape[0]), dtype=torch.float32, device=solvers[tags[0]].device)
+    samples = {t: {"compute": [], "newton": [], "issue": [], "event": [],
+                   "repack": []} for t in tags}
+    iters = {}
+    for _ in range(rounds):
+        for tag in order:
+            S = solvers[tag]
+            P = S.precond
+            s = samples[tag]
+            s["compute"].append(wall_median(S.compute, reps=1)[0])
+            if P._structured_active:
+                s["repack"].append(wall_median(
+                    lambda: P.apply_factors_from(P._factors), reps=1)[0])
+            t, r = wall_median(
+                lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b),
+                reps=1)
+            s["newton"].append(t)
+            iters[tag] = r.iters
+            f, a = P.apply_factors, P._aplans
+            P.apply_fn(f, a, v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                P.apply_fn(f, a, v)
+            s["issue"].append((time.perf_counter() - t0) / 100)
+            torch.cuda.synchronize()
+            s["event"].append(event_ms(lambda: P.apply_fn(f, a, v), reps=5,
+                                       inner=10, warmup=1))
+    # the profiler runs last: CUPTI, once attached, slows later launches
+    out = {}
+    for tag in tags:
+        S = solvers[tag]
+        P = S.precond
+        med = {k: statistics.median(x) for k, x in samples[tag].items() if x}
+        n_it = max(iters[tag], 1)
+        per_iter = (med["newton"] - med["compute"]) / n_it
+        n_step, n_mem, busy = device_events(
+            lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b))
+        f, a = P.apply_factors, P._aplans
+        n_apply, _, apply_busy = device_events(lambda: P.apply_fn(f, a, v))
+        rep = (f", of which the structured repack {med['repack']:.4f} s"
+               if "repack" in med else "")
+        log(f"{tag} times: compute {med['compute']:.4f} s{rep}; "
+            f"newton_step {med['newton']:.4f} s ({iters[tag]} inner "
+            f"iterations, {per_iter * 1e3:.3f} ms per inner iteration incl."
+            f" the f64 residuals; median of {2 * rounds}, interleaved, wall"
+            f" clock)")
+        log(f"{tag} launches: {n_step} device events per newton_step "
+            f"({n_mem} memcpy/memset), {n_step / n_it:.1f} per inner "
+            f"iteration; {n_apply} per V-cycle apply; device busy "
+            f"{busy / 1e3:.2f} ms per step (profiled), idle share "
+            f"{1 - busy * 1e-6 / med['newton']:.3f} of the unprofiled step")
+        log(f"{tag} V-cycle apply: host issue {med['issue'] * 1e6:.1f} us "
+            f"per call (100 calls, no sync; median of {2 * rounds}), "
+            f"{med['event'] * 1e3:.1f} us per call by CUDA events, "
+            f"{apply_busy:.1f} us device busy (profiled)")
+        out[tag] = {"compute_s": med["compute"],
+                    "repack_s": med.get("repack"),
+                    "newton_step_s": med["newton"], "inner": iters[tag],
+                    "events_per_step": n_step, "events_per_apply": n_apply,
+                    "apply_issue_us": med["issue"] * 1e6,
+                    "apply_event_us": med["event"] * 1e3,
+                    "apply_device_us": apply_busy,
+                    "device_busy_ms": busy / 1e3}
+    return out
 
 
 def coarse_inverse_residual(S):
@@ -207,7 +442,7 @@ def main() -> int:
         f"device {kind} (count {count})")
 
     from hymls_tpu_torch.ops import _build
-    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.ops.dense_matvec import dense_matvec
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
 
@@ -226,63 +461,37 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ----------------------------
     dia = check_dia_kernel(device)
+    mv = check_dense_matvec(device)
 
-    # -- 4. main path ---------------------------------------------------------
-    dia_matvec.launches = 0
-    t0 = time.perf_counter()
-    K, b, S, res, relres, t_init = drive_main_path(device)
+    # -- 4. probe path ----------------------------------------------------------
+    reset_counts()
+    probe, probe_big, _ = drive_probe(device)
     torch.cuda.synchronize()
-    launches = dia_matvec.launches
-    log(f"main path: n={K.shape[0]} nnz={K.nnz} "
-        f"bands={len(S.op64.offsets)} coarse n={S.precond.coarse_plan.n}; "
-        f"setup {t_init:.2f} s, first compute+newton_step "
-        f"{time.perf_counter() - t0 - t_init:.2f} s")
-    log(f"newton_step: inner f32 iterations {res.iters} (anchor "
-        f"{ANCHOR_INNER}), true f64 relres {relres:.3e}, converged "
-        f"{res.converged}; dia_spmv launches {launches}")
-    x = res.x
-    if tuple(x.shape) != (K.shape[0],) or x.dtype != torch.float64 or \
-            not bool(torch.isfinite(x).all()):
-        raise RuntimeError("newton_step returned a malformed solution")
-    if not relres <= RELRES_OK:
-        raise RuntimeError(f"relres {relres:.3e} > {RELRES_OK:g}")
-    if abs(res.iters - ANCHOR_INNER) > 2:
-        raise RuntimeError(f"inner iterations {res.iters} not within 2 of "
-                           f"the CPU anchor {ANCHOR_INNER}")
-    if launches <= 0:
-        raise RuntimeError("the main path never launched the dia_spmv "
+    mv_launches = dense_matvec.launches
+    log(f"probe path: dense_matvec launches {mv_launches} (wrapper calls "
+        f"during graph capture and warm-up; replays are not counted)")
+    if mv_launches <= 0:
+        raise RuntimeError("the probe path never launched the dense_matvec "
                            "kernel")
 
-    from hymls_tpu_torch import Solver
-    S64 = Solver(K, S.precond, cavity64_params(), dtype=torch.float64,
-                 device=device)
-    x64, r64 = S64.apply_inverse(b)
-    rel64 = float(np.linalg.norm(K @ x64.cpu().numpy() - b)
-                  / np.linalg.norm(b))
-    log(f"f64 GMRES: {r64.iters} iterations (anchor {ANCHOR_F64}), "
-        f"true relres {rel64:.3e}")
-    if abs(r64.iters - ANCHOR_F64) > 1 or not rel64 <= RELRES_OK:
-        raise RuntimeError(f"f64 GMRES: {r64.iters} iterations, relres "
-                           f"{rel64:.3e}")
+    # -- 5. main path: structured apply ("Auto") -----------------------------
+    K, b, S, launches = check_main_path(device, "Auto", "structured")
     shape, cres = coarse_inverse_residual(S)
     log(f"coarse f32{list(shape)} inverse: max|I - A X| = {cres:.3e}")
 
-    # -- 5. times -------------------------------------------------------------
-    t_compute, _ = wall_median(S.compute, reps=5)
-    t_newton, r = wall_median(
-        lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b), reps=5)
-    per_iter = (t_newton - t_compute) / max(r.iters, 1)
+    # -- 6. generic apply -------------------------------------------------------
+    _, _, Sg, launches_gen = check_main_path(device, False, "generic")
+
+    # -- 7. times -------------------------------------------------------------
+    times = time_paths({"structured": S, "generic": Sg}, b)
     scalar = torch.ones((), device=device)
     reads = []
     for _ in range(50):
         t0 = time.perf_counter()
         float(scalar)
         reads.append(time.perf_counter() - t0)
-    host_read = statistics.median(reads)
-    log(f"times: compute {t_compute:.4f} s, newton_step {t_newton:.4f} s "
-        f"({r.iters} inner iterations, {per_iter * 1e3:.3f} ms per inner "
-        f"iteration incl. the f64 residuals), host scalar read "
-        f"{host_read * 1e6:.1f} us (median of 5 / 50, wall clock)")
+    log(f"host scalar read {statistics.median(reads) * 1e6:.1f} us "
+        f"(median of 50)")
 
     f32, f64 = dia["f32"], dia["f64"]
     log(json.dumps({"kernels": [{
@@ -290,12 +499,27 @@ def main() -> int:
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
         "replaces": "hymls_tpu/ops/pallas_spmv.py:50",
         "launches": launches,
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "max_rel_err_f32": f32["max_rel_err"],
+        "launches_by_path": {"structured": launches,
+                             "generic": launches_gen},
+        "max_abs_err": f32["max_abs_err"], "max_rel_err": f32["max_rel_err"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "max_rel_err_f64": f64["max_rel_err"],
         "max_abs_err_f64": f64["max_abs_err"], "ms_f64": f64["ms"],
-        "plain_ms_f64": f64["plain_ms"]}]}))
+        "plain_ms_f64": f64["plain_ms"]}, {
+        "name": "dense_matvec", "route": "cuda",
+        "source": "hymls_tpu_torch/csrc/dense_matvec.cu",
+        "replaces": "tools/loop_pathology_bench.py:59",
+        "launches": mv_launches,
+        "launches_are": "wrapper calls during CUDA-graph capture and "
+                        "warm-up; graph replays are not counted",
+        "max_abs_err": mv["max_abs_err"], "max_rel_err": mv["max_rel_err"],
+        "ms": mv[2048]["ms"], "plain_ms": mv[2048]["plain_ms"],
+        "ms_n8192": mv[8192]["ms"], "plain_ms_n8192": mv[8192]["plain_ms"],
+        "ms_n2047": mv[2047]["ms"], "plain_ms_n2047": mv[2047]["plain_ms"],
+        "ms_n300": mv[300]["ms"], "plain_ms_n300": mv[300]["plain_ms"],
+        "probe_ms_per_iter": probe,
+        "probe_ms_per_iter_n8192": probe_big}],
+        "paths": times}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -3,8 +3,10 @@
 The reference `hymls_tpu.Preconditioner` keeps its device plans in
 `_dplans` (one dict per level) and `_dcoarse`, and its factor tree as
 {"levels": [{A11inv, G, A21, blkinv, sc}, ...], "coarse": {...}}.
+With the structured apply active it also keeps the repacked tree
+`_sfactors`, {"levels": [{A11, A21, G, blk: [...]}, ...], "coarse"}.
 After `np.asarray` on each leaf these functions copy them into the
-port's tensors, so that the port's apply can run on the reference's
+port's tensors, so that the port's applies can run on the reference's
 own plans and factors.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -16,13 +18,15 @@ import numpy as np
 import torch
 
 from .core.preconditioner import (LEVEL_FIELDS_INT, LEVEL_FIELDS_BOOL,
-                                  LEVEL_FIELDS_FLOAT, COARSE_FIELDS)
+                                  LEVEL_FIELDS_FLOAT, COARSE_FIELDS,
+                                  clamp_sentinels)
 
 
 def plans_from_numpy(dplans: List[Dict[str, np.ndarray]],
                      dcoarse: Dict[str, np.ndarray], *, device):
     """(level plans, coarse plan) as the port's plan tensors: index maps
-    int64, masks bool, float fields in their own dtype.  The
+    int64 (sentinels clamped as the port's own plans are), masks bool,
+    float fields in their own dtype.  The
     reference's gather-strategy arrays (`*_skeys`, `*_spos`, `*_ckeys`)
     are TPU workarounds and are dropped."""
     levels = []
@@ -36,7 +40,7 @@ def plans_from_numpy(dplans: List[Dict[str, np.ndarray]],
                                 device=device)
         for f in LEVEL_FIELDS_FLOAT:
             t[f] = torch.tensor(np.asarray(d[f]), device=device)
-        levels.append(t)
+        levels.append(clamp_sentinels(t))
     coarse = {f: torch.tensor(np.asarray(dcoarse[f], dtype=np.int64),
                               device=device) for f in COARSE_FIELDS}
     return levels, coarse
@@ -57,3 +61,17 @@ def factors_from_numpy(factors, *, device):
     if isinstance(factors, (list, tuple)):
         return [factors_from_numpy(v, device=device) for v in factors]
     return torch.tensor(np.asarray(factors), device=device)
+
+
+SFACTOR_KEYS = ("A11", "A21", "G", "blk")
+
+
+def sfactors_from_numpy(sfactors, *, device):
+    """The reference's repacked (structured) factor tree, after
+    `np.asarray` on each leaf, as the tree that
+    `StructuredProgram.apply` of the port reads."""
+    for lev, f in enumerate(sfactors["levels"]):
+        if set(f) != set(SFACTOR_KEYS):
+            raise ValueError(f"level {lev}: structured factors have keys "
+                             f"{sorted(f)}, expected {list(SFACTOR_KEYS)}")
+    return factors_from_numpy(sfactors, device=device)

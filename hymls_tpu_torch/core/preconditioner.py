@@ -1,7 +1,7 @@
 """The multilevel preconditioner: torch numerics + host orchestration.
 
-Torch counterpart of the generic (gather-form), block-diagonal, L >= 1
-path of hymls_tpu/core/preconditioner.py:
+Torch counterpart of the block-diagonal, L >= 1 path of
+hymls_tpu/core/preconditioner.py:
 
   * `initialize` partitions every level and builds the static plans on
     the host with the same numpy code as the reference (core/plan.py
@@ -11,8 +11,12 @@ path of hymls_tpu/core/preconditioner.py:
     all factorizations of all levels: batched dense interior inverses,
     the Householder-transformed Schur assembly, the non-Vsum block
     inverses and the dense coarse factor;
-  * `apply_fn(factors, dplans, b)` is the V-cycle: gathers + batched
-    matvecs per level, the coarse solve at the bottom.
+  * `apply_fn(factors, aplans, b)` is the V-cycle.  By default
+    ('Structured Apply' = "Auto", as in the reference) it is the
+    gather-free structured apply of core/structured.py whenever its
+    detection succeeds within the element budget; otherwise the
+    generic apply: gathers + batched matvecs per level, the coarse
+    solve at the bottom.
 
 The reference's sort/scatter permutation gathers (core/permute.py) are
 TPU workarounds; here every static map is a plain index gather, which
@@ -104,6 +108,15 @@ APPLY_FIELDS = ("int_pos", "sd_sep_pos", "sep_pos_in_nodes",
                 "ot_inv_idx", "ot_row_of")
 
 
+def clamp_sentinels(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A level without non-Vsum blocks has an empty block solve, yet
+    its `blk_inv_idx` sentinel is 1 (core/plan.py); the reference's
+    gather clamps it onto the appended zero, a torch gather would raise.
+    Clamp it there once, when the plan is built."""
+    d["blk_inv_idx"] = d["blk_inv_idx"].clamp(max=d["blk_pos"].numel())
+    return d
+
+
 def _device_level(plan: LevelPlan, dtype, device) -> Dict[str, torch.Tensor]:
     """One level's static plan as tensors on `device`: index maps as
     int64, masks as bool, the dense transforms in `dtype`."""
@@ -117,7 +130,7 @@ def _device_level(plan: LevelPlan, dtype, device) -> Dict[str, torch.Tensor]:
     for f in LEVEL_FIELDS_FLOAT:
         d[f] = torch.as_tensor(np.asarray(getattr(plan, f)), dtype=dtype,
                                device=device)
-    return d
+    return clamp_sentinels(d)
 
 
 def _device_coarse(cp: CoarsePlan, device) -> Dict[str, torch.Tensor]:
@@ -242,8 +255,8 @@ def _unsupported(what: str, item: str):
 
 class Preconditioner:
     """Multilevel F-matrix preconditioner with the same math as the
-    reference HYMLS::Preconditioner (generic apply, block-diagonal
-    variant, one or more levels)."""
+    reference HYMLS::Preconditioner (block-diagonal variant, one or
+    more levels; structured or generic apply)."""
 
     def __init__(self, K: sp.csr_matrix, params: Params,
                  testvector: Optional[np.ndarray] = None,
@@ -268,12 +281,6 @@ class Preconditioner:
             raise _unsupported("'B-Grid Transform'", "M9")
         if prec.get("Factor Precision", "Same") == "f64":
             raise _unsupported("'Factor Precision' = 'f64'", "M9")
-        # 'Auto' and False both run the generic apply here; the
-        # reference holds its structured apply equal to the generic one
-        # to machine precision (tests/test_structured.py)
-        if prec.get("Structured Apply", "Auto") is True:
-            raise _unsupported("'Structured Apply' = true", "M8")
-
         self.grid: GridInfo = grid_from_params(params)
         K = K.tocsr().copy()
         K.sum_duplicates()
@@ -309,6 +316,7 @@ class Preconditioner:
 
         self.plans: List[LevelPlan] = []
         self.hierarchies = []
+        self._level_parts: List[PartitionParams] = []
         for lev in range(self.max_level):
             if lev > 0:
                 # re-resolve per-level parameters and keep the
@@ -319,6 +327,7 @@ class Preconditioner:
                 part.sx, part.sy, part.sz = nxt.sx, nxt.sy, nxt.sz
                 part.cx, part.cy, part.cz = nxt.cx, nxt.cy, nxt.cz
             cart = self._make_partitioner(part)
+            self._level_parts.append(part)
             sds = [cart.get_groups(sd) for sd in cart.valid_subdomain_ids()]
             hier = build_hierarchy(sds, active=None if lev == 0 else nodes)
             plan, tv = build_level_plan(lev, hier, pattern, nodes, tv,
@@ -333,7 +342,38 @@ class Preconditioner:
         self._dplans = [_device_level(p, self.dtype, self.device)
                         for p in self.plans]
         self._dcoarse = _device_coarse(self.coarse_plan, self.device)
+        self._init_structured()
         return self
+
+    def _init_structured(self):
+        """Build the gather-free structured apply (core/structured.py),
+        or keep the generic gather path, as the reference decides
+        (hymls_tpu/core/preconditioner.py:_init_structured).
+        'Structured Apply' is False (generic), True (structured; raises
+        if detection fails) or "Auto" (the default): structured unless
+        detection fails or the repacked factor tensors would exceed the
+        reference's element budget, 5e7 on the CPU and 3e7 elsewhere
+        (the reference's TPU number; an H100 budget is not measured
+        yet).  A fallback leaves its reason in `_structured_reason`."""
+        self._structured = None
+        self._sfactors = None
+        self._structured_reason = None
+        mode = self.params.sublist("Preconditioner").get(
+            "Structured Apply", "Auto")
+        if mode is False:
+            self._structured_reason = "disabled by parameter"
+            return
+        from .structured import build_structured_program
+        if mode == "Auto":
+            budget = 5e7 if self.device.type == "cpu" else 3e7
+        else:
+            budget = None
+        self._structured = build_structured_program(self,
+                                                    max_elements=budget)
+        if self._structured is None and mode is True:
+            raise ValueError(f"'Structured Apply' = true, but the "
+                             f"structured apply does not fit this "
+                             f"problem: {self._structured_reason}")
 
     def _make_partitioner(self, part: PartitionParams):
         if self.partitioner_type == "Skew Cartesian":
@@ -341,9 +381,23 @@ class Preconditioner:
         return CartesianPartitioner(self.grid, part)
 
     @property
-    def _aplans(self):
-        """The plan tensors the apply reads (a pruned view, no copies)."""
+    def _aplans_gen(self):
+        """The plan tensors the generic apply reads (a pruned view, no
+        copies)."""
         return [{k: d[k] for k in APPLY_FIELDS} for d in self._dplans]
+
+    @property
+    def _structured_active(self) -> bool:
+        """Whether `apply_fn` runs the structured program."""
+        return self._structured is not None
+
+    @property
+    def _aplans(self):
+        """The plan tree matching `apply_factors` and `apply_fn`: the
+        structured program's constants, or the generic plans."""
+        if self._structured_active:
+            return self._structured.consts
+        return self._aplans_gen
 
     # -- numerics (plain functions of their tensor arguments) ---------------
     def compute_fn(self, vals, dplans, dcoarse):
@@ -360,8 +414,16 @@ class Preconditioner:
                                 self.coarse_plan.n)
         return {"levels": facs, "coarse": coarse}
 
-    def apply_fn(self, factors, dplans, b):
-        """x = M^{-1} b for the factor tree `factors`."""
+    def apply_fn(self, factors, aplans, b):
+        """x = M^{-1} b for the apply-side factor tree `factors` and the
+        plan tree `aplans` (`apply_factors` and `_aplans`): the
+        structured program when it is active, else the generic apply."""
+        if self._structured_active:
+            return self._structured.apply(factors, b, aplans)
+        return self.apply_generic(factors, aplans, b)
+
+    def apply_generic(self, factors, dplans, b):
+        """The generic gather V-cycle on a pruned generic factor tree."""
         def solve_at(lev, rhs):
             if lev == self.max_level:
                 return _dense_solve(factors["coarse"], rhs)
@@ -384,6 +446,8 @@ class Preconditioner:
         vals = torch.as_tensor(self.K.data, dtype=self.dtype,
                                device=self.device)
         self._factors = self.compute_fn(vals, self._dplans, self._dcoarse)
+        self._sfactors = (self.apply_factors_from(self._factors)
+                          if self._structured_active else None)
         return self
 
     def recompute(self, K: Optional[sp.csr_matrix] = None):
@@ -410,7 +474,21 @@ class Preconditioner:
 
     @property
     def apply_factors(self):
-        return self._prune_factors(self.factors)
+        """The factor tree `apply_fn` reads: repacked when the
+        structured program is active, else the pruned generic tree."""
+        factors = self.factors     # computes (and repacks) on first use
+        if self._structured_active:
+            return self._sfactors
+        return self._prune_factors(factors)
+
+    def apply_factors_from(self, factors):
+        """The apply-side factor tree of an externally computed factor
+        tree (e.g. a Newton step's re-factorization): repacked into the
+        structured layout when that program is active."""
+        pruned = self._prune_factors(factors)
+        if self._structured_active:
+            return self._structured.repack(pruned)
+        return pruned
 
     def apply_inverse(self, b):
         """x = P^{-1} b for a single vector (tensor or numpy)."""

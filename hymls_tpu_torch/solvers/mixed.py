@@ -71,7 +71,7 @@ class IterativeRefinementSolver:
     def set_border(self, V, W=None, C=None):
         raise _unsupported("the bordered solver", "M9")
 
-    def refine(self, vals64, vals32, factors, dplans, b) -> KrylovResult:
+    def refine(self, vals64, vals32, factors, aplans, b) -> KrylovResult:
         """The refinement loop: f64 residual -> f32 Krylov correction ->
         f64 update, until the true relative residual reaches the outer
         tolerance or `max_passes` passes ran.  `iters` counts the inner
@@ -89,7 +89,7 @@ class IterativeRefinementSolver:
             return mv32(pv32, x)
 
         def prec(x):
-            return apply_fn(factors, dplans, x)
+            return apply_fn(factors, aplans, x)
 
         x = torch.zeros_like(b)
         r = b
@@ -119,11 +119,12 @@ class IterativeRefinementSolver:
 
     def newton_step(self, vals64, vals32, b) -> KrylovResult:
         """One Newton step: f32 re-factorization from the f64 values,
-        then the refinement solve (the counterpart of the reference's
+        the structured repack when that apply is active, then the
+        refinement solve (the counterpart of the reference's
         `newton_step_fn` program)."""
         P = self.precond
-        factors = P._prune_factors(P.compute_fn(vals64, P._dplans,
-                                                P._dcoarse))
+        factors = P.apply_factors_from(P.compute_fn(vals64, P._dplans,
+                                                    P._dcoarse))
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
         res = self.refine(vals64, vals32, factors, P._aplans, b)
         self._last_result = res

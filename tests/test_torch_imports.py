@@ -28,6 +28,8 @@ def test_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import hymls_tpu_torch, hymls_tpu_torch.solvers.mixed\n"
         "import hymls_tpu_torch.convert, hymls_tpu_torch.ops.dia_spmv\n"
+        "import hymls_tpu_torch.core.structured\n"
+        "import hymls_tpu_torch.tools.loop_pathology_bench\n"
         "assert not any(m == 'hymls_tpu' or m.startswith('hymls_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok')\n")

@@ -188,7 +188,7 @@ def test_empty_coarse_system():
 
 @pytest.mark.parametrize("prec,item", [
     ({"Number of Levels": 0}, "M9"),
-    ({"Structured Apply": True}, "M8"),
+    ({"B-Grid Transform": True}, "M9"),
     ({"Preconditioner Variant": "Domain Decomposition"}, "M9"),
     ({"Apply Dropping": False}, "M9"),
     ({"Factor Precision": "f64"}, "M9"),
