@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Needs one CUDA card, nvcc and the repository checkout (hymls_tpu_torch
 beside this file); it imports nothing of JAX.  Phases, each of which
@@ -10,12 +10,22 @@ raises on failure (nonzero exit, no result line):
      limit as nvidia-smi reports them;
   2. build: compiles every kernel of hymls_tpu_torch/csrc (dia_spmv.cu,
      dense_matvec.cu) with nvcc, one process per source, all started
-     together;
-  3. kernels: each kernel against its plain torch version on the card,
-     with both times (CUDA events) -- the DIA SpMV at the main path's
-     shape (cavity64: 19 bands x 12288) and a ragged one (n = 577), in
-     f32 and f64; the dense matvec at the probe's n = 2048 and 8192 and
-     the ragged n = 2047 and 300 (relative tolerance 1e-5, f32);
+     together (and, with --baseline DIR, DIR's dia_spmv.cu beside them);
+  3. kernels: each kernel against its plain torch version on the card.
+     The DIA SpMV at six shapes from the port's generators -- cavity64
+     (the main path's, 19 bands x 12288), stokes128, cavity128,
+     stokes3d32, cavity512 and cavity1024 (beyond the 50 MB L2) -- in
+     f32 and f64 (relative tolerance 1e-6 / 1e-14), also with an x not
+     16-byte aligned.  Per shape and
+     type: device time per launch by CUDA-graph replay of 100 launches,
+     beside the bound (bytes at 3.35 TB/s), an empty launch, cuSPARSE's
+     CSR SpMV on the same matrix (torch.mv on a sparse CSR tensor, timed
+     here only) and, with --baseline, DIR's kernel; the call with host
+     issue (CUDA events) and the host issue alone (wall clock, no
+     synchronize), for the kernel and for cuSPARSE.  The dense matvec
+     at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
+     (relative tolerance 1e-5, f32), with graph-replay device times
+     against torch.matmul at 2048 and 8192;
   4. probe path: the loop-pathology probe
      (hymls_tpu_torch.tools.loop_pathology_bench) at n = 2048, every
      variant, and its two-matvec variants at n = 8192 (beyond L2), with
@@ -139,52 +149,163 @@ def wall_median(fn, reps: int):
     return statistics.median(times), out
 
 
-def check_dia_kernel(device):
-    """Phase 3: the DIA kernel against its plain version on the card."""
-    from hymls_tpu_torch.ops.spmv import DiaOperator
-    from hymls_tpu_torch.ops.dia_spmv import dia_matvec, dia_matvec_reference
+def issue_us(fn, calls: int = 100) -> float:
+    """Host us per call of `calls` back-to-back calls, no synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return t * 1e6
 
-    K, _ = cavity64()
+
+def build_baseline(baseline_dir):
+    """Start nvcc on an earlier tree's csrc/dia_spmv.cu with the
+    package's flags; returns (process, library path)."""
+    from hymls_tpu_torch.tools.dia_spmv_sweep import start_build
+    src = os.path.join(baseline_dir, "hymls_tpu_torch", "csrc",
+                       "dia_spmv.cu")
+    so = os.path.join(os.path.abspath(baseline_dir),
+                      "libdia_spmv_baseline.so")
+    return start_build(src, so), so
+
+
+def check_dia_kernel(device, baseline=None):
+    """Phase 3: the DIA kernel against its plain version at every shape
+    of the sweep, in f32 and f64, with x at the start of its buffer and
+    one element into it (not 16-byte aligned); per shape and type
+    the device time per launch by CUDA-graph replay of the kernel, of
+    cuSPARSE's CSR SpMV (torch.mv on a sparse CSR tensor of the same
+    matrix) and, given `baseline`, of the earlier kernel, beside the
+    bound; the call time with host issue and the host issue alone for
+    the kernel and for cuSPARSE."""
+    from hymls_tpu_torch.ops.spmv import DiaOperator
+    from hymls_tpu_torch.ops.dia_spmv import (dia_matvec_packed,
+                                              dia_matvec_reference)
+    from hymls_tpu_torch.tools.dia_spmv_sweep import (
+        SWEEP, bound, caller, capture, replay_us, sweep_matrix)
+
     rng = np.random.default_rng(11)
-    rec = {}
-    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-        op = DiaOperator(K, dtype=dtype, device=device)
-        cases = {"cavity64": (op.prepare(op.vals), op.offsets)}
-        offs577 = (-25, -1, 0, 1, 25)
-        cases["ragged577"] = (
-            torch.as_tensor(rng.standard_normal((5, 577)), dtype=dtype,
-                            device=device), offs577)
-        rel_max = abs_max = 0.0
-        for name, (bands, offs) in cases.items():
-            x = torch.as_tensor(rng.standard_normal(bands.shape[1]),
-                                dtype=dtype, device=device)
-            y = dia_matvec(bands, x, offs)
-            y_ref = dia_matvec_reference(bands, x, offs)
-            torch.cuda.synchronize()
-            err = float((y - y_ref).abs().max())
-            rel = err / max(float(y_ref.abs().max()), 1e-300)
-            log(f"dia_spmv {tag} {name}: k={len(offs)} n={bands.shape[1]} "
-                f"max|y-y_ref|={err:.3e} rel={rel:.3e} (tol {TOL[dtype]:g})")
-            if not (rel <= TOL[dtype]) or not torch.isfinite(y).all():
-                raise RuntimeError(f"dia_spmv {tag} {name} disagrees with "
-                                   f"its plain version: rel err {rel:.3e}")
-            rel_max, abs_max = max(rel_max, rel), max(abs_max, err)
+    one = torch.zeros(1, device=device)
+    sweep = {}
+    for name in SWEEP:
+        t0 = time.perf_counter()
+        K = sweep_matrix(name)
+        op = DiaOperator(K, dtype=torch.float64, device=device)
+        b64 = op.prepare(op.vals)
+        offs = op.packed
+        n, k = K.shape[0], offs.k
+        crow = torch.as_tensor(K.indptr.astype(np.int32), device=device)
+        col = torch.as_tensor(K.indices.astype(np.int32), device=device)
+        xs = rng.standard_normal(n + 1)
+        log(f"dia_spmv sweep {name}: n={n} k={k} max|off|="
+            f"{max(abs(o) for o in offs.offsets)} nnz={K.nnz} (built in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        rec = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            bands = b64.to(dtype)
+            buf = torch.as_tensor(xs, dtype=dtype, device=device)
+            x = buf[:n].clone()
+            x_odd = buf[1:]                  # not 16-byte aligned
+            A = torch.sparse_csr_tensor(
+                crow, col, torch.as_tensor(K.data, dtype=dtype,
+                                           device=device), (n, n))
+            errs = {}
+            for path, xv in (("aligned", x), ("offset", x_odd)):
+                y = dia_matvec_packed(bands, xv, offs)
+                y_ref = dia_matvec_reference(bands, xv, offs.offsets)
+                torch.cuda.synchronize()
+                err = float((y - y_ref).abs().max())
+                rel = err / max(float(y_ref.abs().max()), 1e-300)
+                if not (rel <= TOL[dtype]) or \
+                        not bool(torch.isfinite(y).all()):
+                    raise RuntimeError(
+                        f"dia_spmv {tag} {name} ({path} x) disagrees "
+                        f"with its plain version: rel err {rel:.3e}")
+                errs[path] = (err, rel)
+
+            def kernel():
+                return dia_matvec_packed(bands, x, offs)
+
+            def library():
+                return torch.mv(A, x)
+
+            # the yardsticks compute the same function; cuSPARSE sums in
+            # another order, hence 10x the kernel's tolerance
+            y = kernel()
+            yardsticks = {"library": (library, 10 * TOL[dtype])}
+            if baseline is not None:
+                yardsticks["baseline"] = (
+                    caller(baseline[dtype], bands, x, offs), TOL[dtype])
+            diff = {}
+            for what, (fn, tol) in yardsticks.items():
+                diff[what] = float((fn() - y).abs().max()) / max(
+                    float(y.abs().max()), 1e-300)
+                if not diff[what] <= tol:
+                    raise RuntimeError(f"{what} dia_spmv {tag} {name} "
+                                       f"disagrees with the kernel: rel "
+                                       f"diff {diff[what]:.3e}")
+            graphs = {"kernel": capture(kernel),
+                      "floor": capture(lambda: one.zero_())}
+            graphs.update({what: capture(fn)
+                           for what, (fn, _) in yardsticks.items()})
             if name == "cavity64":
-                ms = event_ms(lambda: dia_matvec(bands, x, offs))
-                plain_ms = event_ms(
-                    lambda: dia_matvec_reference(bands, x, offs))
-                log(f"dia_spmv {tag} cavity64 time: kernel {ms * 1e3:.2f} us,"
-                    f" plain torch {plain_ms * 1e3:.2f} us per call")
-        rec[tag] = {"max_abs_err": abs_max, "max_rel_err": rel_max,
-                    "ms": ms, "plain_ms": plain_ms}
-    return rec
+                graphs["plain"] = capture(
+                    lambda: dia_matvec_reference(bands, x, offs.offsets))
+            dev = replay_us(graphs)
+            del graphs, yardsticks
+            b_ms, b_by = bound(n, k, dtype)
+            r = {"device_us": dev["kernel"], "bound_us": b_ms * 1e3,
+                 "bound_by": b_by,
+                 "roofline_share": b_ms * 1e3 / dev["kernel"],
+                 "floor_us": dev["floor"],
+                 "library_us": dev["library"],
+                 "library_rel_diff": diff["library"],
+                 "baseline_device_us": dev.get("baseline"),
+                 "plain_device_us": dev.get("plain"),
+                 "call_us": event_ms(kernel, reps=20) * 1e3,
+                 "host_issue_us": issue_us(kernel),
+                 "library_call_us": event_ms(library, reps=20) * 1e3,
+                 "library_host_issue_us": issue_us(library),
+                 "max_abs_err": max(e[0] for e in errs.values()),
+                 "max_rel_err": max(e[1] for e in errs.values())}
+            if name == "cavity64":
+                r["plain_call_us"] = event_ms(
+                    lambda: dia_matvec_reference(bands, x, offs.offsets),
+                    reps=20) * 1e3
+            base = (f", baseline {r['baseline_device_us']:.3f}"
+                    if baseline is not None else "")
+            log(f"dia_spmv {tag} {name}: rel err "
+                f"{errs['aligned'][1]:.2e}, offset x "
+                f"{errs['offset'][1]:.2e} (tol {TOL[dtype]:g}); device "
+                f"us/launch: kernel {r['device_us']:.3f}{base}, cuSPARSE "
+                f"{r['library_us']:.3f} (rel diff {diff['library']:.1e}), "
+                f"empty launch {r['floor_us']:.3f}; bound "
+                f"{r['bound_us']:.3f} ({b_by}), roofline share "
+                f"{r['roofline_share']:.3f}; call {r['call_us']:.2f} / "
+                f"cuSPARSE {r['library_call_us']:.2f} us, host issue "
+                f"{r['host_issue_us']:.2f} / "
+                f"{r['library_host_issue_us']:.2f} us")
+            rec[tag] = r
+            del A, bands, x, x_odd, buf
+        sweep[name] = rec
+        del op, b64, crow, col, K
+        torch.cuda.empty_cache()
+    return sweep
 
 
 def check_dense_matvec(device):
     """Phase 3: the dense matvec kernel against its plain version on
-    the card, at the probe's shape and on ragged ones."""
+    the card, at the probe's shape and on ragged ones; at n = 2048 and
+    8192 also the device time per launch by CUDA-graph replay, of the
+    kernel and of torch.matmul (the plain version, one cuBLAS call),
+    beside the bound."""
     from hymls_tpu_torch.ops.dense_matvec import (dense_matvec,
                                                   dense_matvec_reference)
+    from hymls_tpu_torch.tools.dia_spmv_sweep import (HBM_BYTES_PER_S,
+                                                      capture, replay_us)
 
     rng = np.random.default_rng(12)
     rec = {"max_abs_err": 0.0, "max_rel_err": 0.0}
@@ -210,6 +331,17 @@ def check_dense_matvec(device):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["max_rel_err"] = max(rec["max_rel_err"], rel)
         rec[n] = {"ms": ms, "plain_ms": plain_ms}
+        if n in (2048, 8192):
+            dev = replay_us({"kernel": capture(lambda: dense_matvec(M, x)),
+                             "plain": capture(
+                                 lambda: dense_matvec_reference(M, x))})
+            b_us = (n * n + 2 * n) * 4 / HBM_BYTES_PER_S * 1e6
+            rec[n].update(device_us=dev["kernel"],
+                          plain_device_us=dev["plain"], bound_us=b_us)
+            log(f"dense_matvec n={n}: device us/launch kernel "
+                f"{dev['kernel']:.3f}, torch.matmul {dev['plain']:.3f}; "
+                f"bound {b_us:.3f} (bytes), roofline share "
+                f"{b_us / dev['kernel']:.3f}")
     return rec
 
 
@@ -427,7 +559,15 @@ def coarse_inverse_residual(S):
     return tuple(A.shape), float((eye - A.double() @ X.double()).abs().max())
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="an earlier tree of this repository (for example "
+                         "a git archive of the parent commit): its "
+                         "csrc/dia_spmv.cu is built and timed beside the "
+                         "kernel at every sweep shape")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -450,17 +590,24 @@ def main() -> int:
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                      if f.endswith(".cu"))
     t0 = time.perf_counter()
+    base_build = build_baseline(args.baseline) if args.baseline else None
     _build.build(sources)
     for name in sources:
         _build.load(name)
-    log(f"build: {sources} in {time.perf_counter() - t0:.2f} s")
+    if base_build:
+        from hymls_tpu_torch.tools.dia_spmv_sweep import load_build
+        baseline = load_build(*base_build)
+    else:
+        baseline = None
+    log(f"build: {sources}{' and the baseline dia_spmv' if baseline else ''}"
+        f" in {time.perf_counter() - t0:.2f} s")
     for name, out in _build.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ----------------------------
-    dia = check_dia_kernel(device)
+    dia = check_dia_kernel(device, baseline)
     mv = check_dense_matvec(device)
 
     # -- 4. probe path ----------------------------------------------------------
@@ -493,7 +640,13 @@ def main() -> int:
     log(f"host scalar read {statistics.median(reads) * 1e6:.1f} us "
         f"(median of 50)")
 
-    f32, f64 = dia["f32"], dia["f64"]
+    main32 = dia["cavity64"]["f32"]
+    sweep = {shape: {tag: {k: r[k] for k in (
+        "device_us", "bound_us", "roofline_share", "library_us", "call_us",
+        "host_issue_us", "library_call_us", "library_host_issue_us",
+        "baseline_device_us", "floor_us",
+        "max_rel_err")} for tag, r in recs.items()}
+        for shape, recs in dia.items()}
     log(json.dumps({"kernels": [{
         "name": "dia_spmv", "route": "cuda",
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
@@ -501,11 +654,21 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"structured": launches,
                              "generic": launches_gen},
-        "max_abs_err": f32["max_abs_err"], "max_rel_err": f32["max_rel_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "max_rel_err_f64": f64["max_rel_err"],
-        "max_abs_err_f64": f64["max_abs_err"], "ms_f64": f64["ms"],
-        "plain_ms_f64": f64["plain_ms"]}, {
+        "max_abs_err": max(r["max_abs_err"] for recs in dia.values()
+                           for r in recs.values()),
+        "max_rel_err": max(r["max_rel_err"] for recs in dia.values()
+                           for r in recs.values()),
+        "ms": main32["device_us"] * 1e-3,
+        "plain_ms": main32["plain_device_us"] * 1e-3,
+        "bound_ms": main32["bound_us"] * 1e-3,
+        "bound_by": main32["bound_by"],
+        "library_ms": main32["library_us"] * 1e-3,
+        "library": "torch.mv on a torch.sparse_csr_tensor (cuSPARSE SpMV)",
+        "times_are": "device time per launch by CUDA-graph replay of 100 "
+                     "launches, at cavity64 in f32; per shape and type in "
+                     "sweep (us)",
+        "plain_call_ms": main32["plain_call_us"] * 1e-3,
+        "sweep": sweep}, {
         "name": "dense_matvec", "route": "cuda",
         "source": "hymls_tpu_torch/csrc/dense_matvec.cu",
         "replaces": "tools/loop_pathology_bench.py:59",
@@ -513,10 +676,18 @@ def main() -> int:
         "launches_are": "wrapper calls during CUDA-graph capture and "
                         "warm-up; graph replays are not counted",
         "max_abs_err": mv["max_abs_err"], "max_rel_err": mv["max_rel_err"],
-        "ms": mv[2048]["ms"], "plain_ms": mv[2048]["plain_ms"],
-        "ms_n8192": mv[8192]["ms"], "plain_ms_n8192": mv[8192]["plain_ms"],
-        "ms_n2047": mv[2047]["ms"], "plain_ms_n2047": mv[2047]["plain_ms"],
-        "ms_n300": mv[300]["ms"], "plain_ms_n300": mv[300]["plain_ms"],
+        "ms": mv[2048]["device_us"] * 1e-3,
+        "plain_ms": mv[2048]["plain_device_us"] * 1e-3,
+        "bound_ms": mv[2048]["bound_us"] * 1e-3, "bound_by": "bytes",
+        "library_ms": mv[2048]["plain_device_us"] * 1e-3,
+        "library": "torch.matmul (cuBLAS), which is also the plain version",
+        "times_are": "device time per launch by CUDA-graph replay of 100 "
+                     "launches at n = 2048; call_ms_* with host issue",
+        "bound_us": {str(n): mv[n]["bound_us"] for n in (2048, 8192)},
+        "device_us_n8192": mv[8192]["device_us"],
+        "plain_device_us_n8192": mv[8192]["plain_device_us"],
+        **{f"call_ms_n{n}": mv[n]["ms"] for n in MV_SIZES},
+        **{f"plain_call_ms_n{n}": mv[n]["plain_ms"] for n in MV_SIZES},
         "probe_ms_per_iter": probe,
         "probe_ms_per_iter_n8192": probe_big}],
         "paths": times}))

@@ -5,78 +5,211 @@
 // Replaces the Pallas TPU kernel hymls_tpu/ops/pallas_spmv.py:_kernel
 // (PallasDiaMatvec), which held the zero-padded x whole in VMEM and
 // streamed the bands in 2048-wide tiles, each offset an aligned window
-// load plus a sub-128 lane roll.  None of that carries over: here one
-// thread computes one output row in a grid-stride loop; the band rows
-// bands[k * ld + i] are read coalesced across the warp; x[i + off] is
-// read through the caches with a bounds test that gives 0 outside
-// [0, n), so no padded copy of x is ever made.  The sum runs in T, in
-// band order (the order of DiaOperator.matvec_prepared), starting from 0.
+// load plus a sub-128 lane roll.  Only the idea carries over: stream the
+// bands once, read x from fast memory.
 //
-// What bounds it on an H100: at the cavity64 shape (19 bands, n = 12288)
-// the whole operand is (19 + 2) * 12288 * 4 B ~ 1 MB, which sits in the
-// 50 MB L2, so one call is bound by launch latency (a few microseconds),
-// not by bandwidth.  The plain torch version issues about 2k elementwise
-// launches per matvec (a multiply and an add per band), so the single
-// launch is the whole of the gain at this size.  For the bandwidth-bound
-// regime (n of 1e6 and more) x would be staged in shared-memory tiles
-// with a halo of max|off| so that each x element is read from device
-// memory once instead of up to k times; that is later work.
+// What bounds it on an H100: every band element is used once, so the
+// least traffic is (k + 2) * n * sizeof(T) bytes (bands, x and y once
+// each) at 3.35 TB/s; 2k flops per row are far below any FLOP bound.
+// Below about 50 MB the operand stays in L2 between calls, and a call is
+// bound by launch and by the latency of its loads; above it, by HBM
+// bandwidth.  What the design does about that:
+//
+//   * One thread per row, and every load of a thread in flight at once.
+//     The band count is a template parameter, rounded up to a bucket (4,
+//     8, ..., 24, 32, 40, 48; bands past k are predicated off), so the
+//     band loop unrolls: a thread issues all its band and x loads, then
+//     does its FMAs.  An L2-resident call then waits on about one L2
+//     round trip, not one per band or two.
+//   * The grid fills the card: at small n the launcher halves the block
+//     (256 down to 32 threads) until there are two blocks per SM.  In f64
+//     the one-round kernel holds about 2k live doubles a thread; where
+//     its grid does not fit on the card at once (occupancy API), the
+//     loads go in two rounds, which halves the registers.
+//   * 32-bit index arithmetic (n < 2^30, k * n < 2^31): on an H100 it
+//     keeps the sweep's 3-D shape (stokes3d32, f32) at 3.5-3.7 us per
+//     launch, against 3.8-3.9 us with 64-bit band offsets; at the other
+//     shapes the two differ by at most 3%, either way.
+//   * x is read through L1 (__ldg): neighbouring offsets of a stencil
+//     touch the same lines across a warp, and each line comes from L2
+//     about once per block and cluster of offsets.
+//
+// Measured and left out (PERF.md, Findings): staging x in shared memory
+// once per block and cluster of offsets (cp.async, then a barrier) was
+// slower at every shape of chip_smoke.py's sweep, since the copy and the
+// barrier add a dependent round trip and beyond L2 the bands' stream
+// dominates; 16-byte band loads with 4 (f32) or 2 (f64) rows a thread
+// were slower too, since the x loads then stride 16 bytes across a warp
+// and the registers cut the resident warps.
+//
+// Sum order: per row, in band order (the order of the offsets as given,
+// as DiaOperator.matvec_prepared), from 0, one fused multiply-add per
+// band.  The plain version rounds each product first, so the two agree
+// to a few units of the last place of the largest partial sum.
 //
 // The offsets are passed by value in a fixed struct (48 is the band cap
 // of make_operator), so the kernel needs no device array of offsets.
-// Entry points return cudaGetLastError() of the launch; the Python
-// wrapper raises on a nonzero value.  Launches go on the caller's stream
-// and never synchronise.
+// Entry points return cudaGetLastError() of the launch (or
+// cudaErrorInvalidValue for arguments out of range); the Python wrapper
+// raises on a nonzero value.  Launches go on the caller's stream, never
+// synchronise and allocate nothing, so they can be captured in a CUDA
+// graph.
 
 #include <cuda_runtime.h>
 
 #define HYMLS_DIA_MAX_BANDS 48
+
+namespace {
+
+constexpr int kMaxThreads = 256;  // threads per block at large n
+constexpr int kMinThreads = 32;
 
 struct DiaOffsets {
     int v[HYMLS_DIA_MAX_BANDS];
     int k;
 };
 
-template <typename T>
-__global__ void dia_spmv_kernel(const T* __restrict__ bands, long long ld,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                long long n, DiaOffsets offs) {
-    const long long stride = (long long)blockDim.x * gridDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n; i += stride) {
-        T acc = T(0);
-        for (int k = 0; k < offs.k; ++k) {
-            const long long j = i + offs.v[k];
-            const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-            acc += __ldg(bands + (long long)k * ld + i) * xv;
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+    return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+    return fma(a, b, c);
+}
+
+// One thread per row.  KB: the band bucket (bands b >= offs.k are
+// skipped); ROUNDS: the bands' loads go out in this many rounds, each
+// issued whole before its FMAs.  Indices are 32-bit (the launcher
+// checks k * ld < 2^31).
+template <typename T, int KB, int ROUNDS>
+__global__ void __launch_bounds__(kMaxThreads)
+dia_spmv_kernel(const T* __restrict__ bands, int ld,
+                const T* __restrict__ x, T* __restrict__ y, int n,
+                DiaOffsets offs) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    constexpr int G = (KB + ROUNDS - 1) / ROUNDS;
+    T acc = T(0);
+#pragma unroll
+    for (int g0 = 0; g0 < KB; g0 += G) {
+        T bv[G], xv[G];
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            const int b = g0 + u;
+            if (b < KB && b < offs.k) {
+                bv[u] = __ldg(bands + (b * ld + i));
+                const int c = i + offs.v[b];
+                xv[u] = (c >= 0 && c < n) ? __ldg(x + c) : T(0);
+            }
         }
-        y[i] = acc;
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            const int b = g0 + u;
+            if (b < KB && b < offs.k) acc = fma_t(bv[u], xv[u], acc);
+        }
+        // keep the next round's loads behind this round's FMAs
+        if (ROUNDS > 1) asm volatile("" ::: "memory");
     }
+    y[i] = acc;
+}
+
+// SMs of the current device, queried once per device
+int sm_count() {
+    static int cache[64];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) dev = 0;
+    int& sms = cache[dev & 63];
+    if (sms == 0 &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+        sms = 132;
+    return sms;
+}
+
+template <typename T, int KB, int ROUNDS>
+int launch_kernel(const T* bands, int ld, const T* x, T* y, int n,
+                  const DiaOffsets& offs, int threads, int blocks,
+                  cudaStream_t stream) {
+    dia_spmv_kernel<T, KB, ROUNDS><<<blocks, threads, 0, stream>>>(
+        bands, ld, x, y, n, offs);
+    return (int)cudaGetLastError();
+}
+
+// Blocks of dia_spmv_kernel<T, KB, 1> that fit on one SM at `threads`
+// threads each (cached per block size; 0 if the query fails).
+template <typename T, int KB>
+int resident_blocks(int threads) {
+    static int cache[4] = {-1, -1, -1, -1};   // 32, 64, 128, 256 threads
+    int slot = threads == 32 ? 0 : threads == 64 ? 1 : threads == 128 ? 2 : 3;
+    if (cache[slot] < 0) {
+        int nb = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &nb, dia_spmv_kernel<T, KB, 1>, threads, 0) != cudaSuccess)
+            nb = 0;
+        cache[slot] = nb;
+    }
+    return cache[slot];
+}
+
+template <typename T, int KB>
+int launch_bucket(const T* bands, int ld, const T* x, T* y, int n,
+                  const DiaOffsets& offs, cudaStream_t stream) {
+    // halve the block from 256 threads until the grid has two blocks per
+    // SM, down to one warp
+    const int sms = sm_count();
+    int threads = kMaxThreads;
+    while (threads > kMinThreads &&
+           (n + threads - 1) / threads < 2 * sms)
+        threads /= 2;
+    const int blocks = (n + threads - 1) / threads;
+    // all loads in one round, except in f64 where the grid does not fit
+    // on the card at once: there two rounds halve the registers and let
+    // more of the grid be resident (in f32 one round measured as fast at
+    // every size)
+    if constexpr (sizeof(T) == 8) {
+        if ((long long)blocks > (long long)resident_blocks<T, KB>(threads) * sms)
+            return launch_kernel<T, KB, 2>(bands, ld, x, y, n, offs, threads,
+                                           blocks, stream);
+    }
+    return launch_kernel<T, KB, 1>(bands, ld, x, y, n, offs, threads, blocks,
+                                   stream);
 }
 
 template <typename T>
-static int launch(const void* bands, long long ld, const void* x, void* y,
-                  long long n, const void* offsets, int k, void* stream) {
-    if (k < 1 || k > HYMLS_DIA_MAX_BANDS || n < 0 || ld < n)
+int launch(const void* bands_, long long ld, const void* x_, void* y_,
+           long long n, const void* offsets, int k, void* stream_) {
+    // 32-bit indices: n < 2^30 keeps i + off (|off| clamped to n) and
+    // k * ld < 2^31 every band element in range
+    if (k < 1 || k > HYMLS_DIA_MAX_BANDS || n < 0 || ld < n ||
+        n >= (1LL << 30) || (long long)k * ld >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaSuccess;
     DiaOffsets offs;
     const int* off = static_cast<const int*>(offsets);
-    for (int j = 0; j < k; ++j) offs.v[j] = off[j];
+    for (int j = 0; j < k; ++j) {
+        // a band wholly outside [0, n) reads only zeros; clamping keeps
+        // i + off inside 32 bits
+        offs.v[j] = off[j] < -n ? (int)-n : off[j] > n ? (int)n : off[j];
+    }
     for (int j = k; j < HYMLS_DIA_MAX_BANDS; ++j) offs.v[j] = 0;
     offs.k = k;
-    if (n == 0) return (int)cudaSuccess;
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    // 132 SMs x 16 resident blocks of 256 threads: beyond that the
-    // grid-stride loop covers the rest
-    const long long max_blocks = 132LL * 16;
-    if (blocks > max_blocks) blocks = max_blocks;
-    dia_spmv_kernel<T><<<(unsigned)blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(bands), ld, static_cast<const T*>(x),
-        static_cast<T*>(y), n, offs);
-    return (int)cudaGetLastError();
+    const T* bands = static_cast<const T*>(bands_);
+    const T* x = static_cast<const T*>(x_);
+    T* y = static_cast<T*>(y_);
+    const int m = (int)n, l = (int)ld;
+    cudaStream_t s = static_cast<cudaStream_t>(stream_);
+    if (k <= 4) return launch_bucket<T, 4>(bands, l, x, y, m, offs, s);
+    if (k <= 8) return launch_bucket<T, 8>(bands, l, x, y, m, offs, s);
+    if (k <= 12) return launch_bucket<T, 12>(bands, l, x, y, m, offs, s);
+    if (k <= 16) return launch_bucket<T, 16>(bands, l, x, y, m, offs, s);
+    if (k <= 20) return launch_bucket<T, 20>(bands, l, x, y, m, offs, s);
+    if (k <= 24) return launch_bucket<T, 24>(bands, l, x, y, m, offs, s);
+    if (k <= 32) return launch_bucket<T, 32>(bands, l, x, y, m, offs, s);
+    if (k <= 40) return launch_bucket<T, 40>(bands, l, x, y, m, offs, s);
+    return launch_bucket<T, 48>(bands, l, x, y, m, offs, s);
 }
+
+}  // namespace
 
 extern "C" {
 

@@ -11,12 +11,16 @@ a CPU tensor it runs `dia_matvec_reference`, the plain torch version
 (a zero pad plus shifted slices, as `hymls_tpu/ops/spmv.py`'s
 `DiaOperator.matvec_prepared`), which is also what the kernel is held
 against on the card.
+
+An operator whose offsets are fixed packs them once (`DiaOffsets`) and
+calls `dia_matvec_packed`, which checks per call only what can change:
+device, dtype, shape and layout of the tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 
@@ -26,17 +30,35 @@ from . import _build
 MAX_BANDS = 48
 
 _DTYPES = (torch.float32, torch.float64)
+#: the kernel indexes in 32 bits: n < 2^30 rows and k * n < 2^31 elements
+_MAX_ROWS = 1 << 30
+_MAX_ELEMENTS = 1 << 31
 
 
-def _check(bands: torch.Tensor, x: torch.Tensor,
-           offsets: Sequence[int]) -> Tuple[int, ...]:
-    offsets = tuple(int(o) for o in offsets)
-    k = len(offsets)
-    if not 1 <= k <= MAX_BANDS:
-        raise ValueError(f"dia_matvec takes 1..{MAX_BANDS} bands, got {k}")
+class DiaOffsets:
+    """The band offsets of one DIA matrix, checked and packed once: the
+    tuple for the plain version and a C int array for the kernel."""
+
+    __slots__ = ("offsets", "k", "_c", "ptr")
+
+    def __init__(self, offsets: Sequence[int]):
+        self.offsets = tuple(int(o) for o in offsets)
+        self.k = len(self.offsets)
+        if not 1 <= self.k <= MAX_BANDS:
+            raise ValueError(f"dia_matvec takes 1..{MAX_BANDS} bands, "
+                             f"got {self.k}")
+        self._c = (ctypes.c_int * self.k)(*self.offsets)
+        self.ptr = ctypes.addressof(self._c)
+
+    def __reduce__(self):
+        # a copy packs its own array: `ptr` must not outlive `_c`
+        return DiaOffsets, (self.offsets,)
+
+
+def _check(bands: torch.Tensor, x: torch.Tensor, k: int) -> None:
     if x.dim() != 1 or bands.dim() != 2:
         raise ValueError("dia_matvec wants bands (k, n) and x (n,)")
-    if tuple(bands.shape) != (k, x.shape[0]):
+    if bands.shape[0] != k or bands.shape[1] != x.shape[0]:
         raise ValueError(f"bands shape {tuple(bands.shape)} != "
                          f"({k}, {x.shape[0]})")
     if bands.dtype != x.dtype or x.dtype not in _DTYPES:
@@ -46,7 +68,6 @@ def _check(bands: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"bands on {bands.device}, x on {x.device}")
     if not (bands.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_matvec wants contiguous bands and x")
-    return offsets
 
 
 def dia_matvec_reference(bands: torch.Tensor, x: torch.Tensor,
@@ -65,46 +86,60 @@ def dia_matvec_reference(bands: torch.Tensor, x: torch.Tensor,
 
 
 @functools.cache
-def _lib():
-    """The built kernel library with its C signatures declared (every
-    pointer and the stream as c_void_p: ctypes would otherwise pass
-    them as 32-bit ints)."""
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry point for `dtype`, from the library built at
+    first use, with its signature declared (every pointer and the stream
+    as c_void_p: ctypes would otherwise pass them as 32-bit ints)."""
     lib = _build.load("dia_spmv")
-    for fn in (lib.hymls_dia_spmv_f32, lib.hymls_dia_spmv_f64):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    fn = lib.hymls_dia_spmv_f32 if dtype == torch.float32 \
+        else lib.hymls_dia_spmv_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dia_matvec_packed(bands: torch.Tensor, x: torch.Tensor,
+                      offs: DiaOffsets) -> torch.Tensor:
+    """y = DIA(bands, offs) @ x.  CUDA tensors go to the kernel (or
+    raise); CPU tensors take `dia_matvec_reference`."""
+    _check(bands, x, offs.k)
+    dev = x.device
+    if dev.type == "cpu":
+        return dia_matvec_reference(bands, x, offs.offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"dia_matvec: unsupported device {dev}")
+    n = x.shape[0]
+    if n >= _MAX_ROWS or offs.k * n >= _MAX_ELEMENTS:
+        raise ValueError(f"dia_matvec kernel: n = {n} with {offs.k} bands "
+                         f"is beyond its 32-bit indices")
+    fn = _entry(x.dtype)
+    y = torch.empty_like(x)
+    if n == 0:
+        return y
+    # the raw handle of the current stream: 0.1 us against ~3 us for
+    # torch.cuda.current_stream(dev).cuda_stream, which builds a Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    args = (bands.data_ptr(), n, x.data_ptr(), y.data_ptr(), n, offs.ptr,
+            offs.k, stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error "
+                           f"{err} (n={n}, k={offs.k}, dtype={x.dtype})")
+    dia_matvec.launches += 1
+    return y
 
 
 def dia_matvec(bands: torch.Tensor, x: torch.Tensor,
                offsets: Sequence[int]) -> torch.Tensor:
-    """y = DIA(bands, offsets) @ x.  CUDA tensors go to the kernel (or
-    raise); CPU tensors take `dia_matvec_reference`."""
-    offsets = _check(bands, x, offsets)
-    if x.device.type == "cpu":
-        return dia_matvec_reference(bands, x, offsets)
-    if x.device.type != "cuda":
-        raise ValueError(f"dia_matvec: unsupported device {x.device}")
-    lib = _lib()
-    fn = lib.hymls_dia_spmv_f32 if x.dtype == torch.float32 \
-        else lib.hymls_dia_spmv_f64
-    n = x.shape[0]
-    y = torch.empty_like(x)
-    offs = (ctypes.c_int * len(offsets))(*offsets)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(bands.data_ptr(), bands.stride(0), x.data_ptr(),
-                 y.data_ptr(), n, ctypes.addressof(offs), len(offsets),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error "
-                           f"{err} (n={n}, k={len(offsets)}, "
-                           f"dtype={x.dtype})")
-    dia_matvec.launches += 1
-    return y
+    """`dia_matvec_packed` for offsets given as a sequence, packed on
+    this call."""
+    return dia_matvec_packed(bands, x, DiaOffsets(offsets))
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it)

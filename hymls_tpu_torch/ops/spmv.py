@@ -18,7 +18,7 @@ import scipy.sparse as sp
 
 import torch
 
-from .dia_spmv import dia_matvec
+from .dia_spmv import DiaOffsets, dia_matvec_packed
 
 
 def _canonical(A: sp.spmatrix) -> sp.csr_matrix:
@@ -76,7 +76,8 @@ class DiaOperator(torch.nn.Module):
     gather map `vidx` (k, n) into the CSR value array (the nnz slot is
     the zero sentinel) and the values `vals`; `prepare(vals)` gathers
     the (k, n) contiguous bands once per value set, and
-    `matvec_prepared(bands, x)` is one `dia_matvec` call."""
+    `matvec_prepared(bands, x)` is one `dia_matvec_packed` call on the
+    offsets packed at construction (`packed`)."""
 
     def __init__(self, A: sp.csr_matrix, dtype=torch.float64, *, device):
         super().__init__()
@@ -89,6 +90,7 @@ class DiaOperator(torch.nn.Module):
         vidx = np.full((uniq.size, n), A.nnz, dtype=np.int64)
         vidx[off_of, rows] = np.arange(A.nnz)
         self.offsets: Tuple[int, ...] = tuple(int(o) for o in uniq)
+        self.packed = DiaOffsets(self.offsets)
         self.n = n
         self.nnz = A.nnz
         self.dtype = dtype
@@ -110,7 +112,7 @@ class DiaOperator(torch.nn.Module):
         return vals_ext[self.vidx]                   # (k, n) contiguous
 
     def matvec_prepared(self, bands, x):
-        return dia_matvec(bands, x, self.offsets)
+        return dia_matvec_packed(bands, x, self.packed)
 
     def matvec_with(self, vals, x):
         return self.matvec_prepared(self.prepare(vals), x)

@@ -18,7 +18,7 @@ from hymls_tpu.ops.pallas_spmv import HAVE_PALLAS, PallasDiaMatvec
 from hymls_tpu_torch.ops import spmv as tspmv
 from hymls_tpu_torch.ops.dia_spmv import (dia_matvec, dia_matvec_reference,
                                           MAX_BANDS)
-from hymls_tpu_torch.stencils import laplace2d, stokes2d, laplace3d
+from hymls_tpu_torch.stencils import laplace2d, stokes2d, stokes3d, laplace3d
 from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
 
 MATRICES = {
@@ -136,21 +136,49 @@ def test_wrapper_rejects_bad_input(bad):
         dia_matvec(bands, x, offsets)
 
 
+#: the kernel's cases on the card: the geometries (cavity 256^2 is the
+#: one whose f64 grid exceeds one wave, so its loads go in two rounds),
+#: then ragged n, offsets past half of n, and n = 1
+CUDA_CASES = {
+    "cavity32": lambda: cavity_jacobian(32, 32, re=1000.0),
+    **{k: MATRICES[k] for k in ("cavity16_re1000", "stokes2d_16")},
+    "stokes3d_8": lambda: stokes3d(8, 8, 8),
+    "cavity256": lambda: cavity_jacobian(256, 256, re=1000.0),
+    "ragged577": (577, (-25, -1, 0, 1, 25)),
+    "ragged_past_half": (9, (-8, -5, 0, 4, 7)),
+    "k48": (1000, tuple(range(-30, 18))),
+    "n1": (1, (0,)),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("x_start", [0, 1])
+@pytest.mark.parametrize("case", list(CUDA_CASES))
 @pytest.mark.parametrize("dt", list(DTYPES))
-def test_cuda_kernel_matches_plain_version(cuda_device, dt):
+def test_cuda_kernel_matches_plain_version(cuda_device, dt, case, x_start):
     """The hand-written kernel on the card against the plain version
-    on the same inputs (FMA contraction: 1e-6 in f32, 1e-14 in f64)."""
+    on the same inputs (FMA contraction: 1e-6 in f32, 1e-14 in f64),
+    with x at the start of its buffer and one element into it (not
+    16-byte aligned: the kernel asks no alignment)."""
     tdt = DTYPES[dt][0]
     tol = 1e-6 if tdt == torch.float32 else 1e-14
-    K = cavity_jacobian(32, 32, re=1000.0).tocsr()
-    op = tspmv.DiaOperator(K, dtype=tdt, device=cuda_device)
-    x = torch.as_tensor(np.random.default_rng(3).standard_normal(K.shape[0]),
-                        dtype=tdt, device=cuda_device)
-    bands = op.prepare(op.vals)
+    rng = np.random.default_rng(3)
+    spec = CUDA_CASES[case]
+    if callable(spec):
+        op = tspmv.DiaOperator(spec().tocsr(), dtype=tdt, device=cuda_device)
+        bands, offsets = op.prepare(op.vals), op.offsets
+    else:
+        n, offsets = spec
+        bands = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                                dtype=tdt, device=cuda_device)
+    n = bands.shape[1]
+    buf = torch.as_tensor(rng.standard_normal(n + 1), dtype=tdt,
+                          device=cuda_device)
+    x = buf[x_start:x_start + n]
     before = dia_matvec.launches
-    y = dia_matvec(bands, x, op.offsets)
+    y = dia_matvec(bands, x, offsets)
     torch.cuda.synchronize()
     assert dia_matvec.launches == before + 1
-    y_ref = dia_matvec_reference(bands, x, op.offsets)
+    y_ref = dia_matvec_reference(bands, x, offsets)
+    assert tuple(y.shape) == (n,) and bool(torch.isfinite(y).all())
     assert _rel(y_ref.cpu(), y.cpu()) <= tol
