@@ -46,11 +46,30 @@ raises on failure (nonzero exit, no result line):
   7. times of compute() (and the structured repack) and newton_step()
      for both applies, interleaved inside this one call; kernel
      launches per step and per apply (torch.profiler), host issue and
-     device time per V-cycle apply.
+     device time per V-cycle apply;
+  8. warm Newton sequence on cavity64_Re1000, structured ("Auto") and
+     generic apply: compute() and a cold newton_step, then 4
+     newton_step_warm calls threading the factors through bench.py's
+     warm sequence (values times 1 + 1e-6 (i + 1)); each step's true
+     f64 relres <= 1e-11 and inner f32 iterations within 2 of the JAX
+     package's CPU count; then, interleaved as in phase 7, compute()
+     against recompute(), newton_step against newton_step_warm, the
+     host syncs (scalar reads, error checks) per compute and recompute
+     and the device busy time of each (torch.profiler);
+  9. bordered f64 GMRES on cavity64_Re1000 with the constant-pressure
+     border ('Fix Pressure Level' off): the structured program must be
+     inactive, true relres <= 1e-11, iterations within 1 of the JAX
+     package's CPU count, |border coefficients| <= 1e-8;
+ 10. Bratu 64^2 (tests/test_nonlinear.py's problem): NewtonSolver to
+     lam = 0.5, then Continuation.trace through the fold; the reference
+     test's criteria, max and last lam within 1e-6 of the JAX package's
+     CPU trace; time and DIA launches per corrector.
 
-Each of the paths 4-6 is driven with the kernels' launch counts set to
-0 just before it and read just after.  The line before the last is the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+Each of the paths 4-6 and 8-10 (phase 8 once per apply, phase 10's
+Newton solve and trace apart) is driven with the kernels' launch counts
+set to 0 just before it and read just after; each new path must have
+launched the DIA kernel.  The line before the last is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -70,6 +89,16 @@ import torch
 ANCHOR_INNER = 75
 ANCHOR_F64 = 72
 RELRES_OK = 1e-11
+# CPU anchors of the JAX package (PERF.md, PR 5): inner f32 iterations
+# of newton_step_warm_fn over bench.py's warm sequence on cavity64, per
+# step and apply; f64 GMRES iterations of the bordered cavity64 solve;
+# max and last lam of the Bratu 64^2 continuation through the fold
+ANCHOR_WARM = {"structured": (75, 76, 75, 75), "generic": (76, 76, 76, 75)}
+ANCHOR_BORDERED = 72
+BRATU_DS = 4.0
+BRATU_STEPS = 22
+ANCHOR_LAM_MAX = 6.804608946817739
+ANCHOR_LAM_LAST = 4.696724384434961
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 # dense matvec: f32 sums of up to 8192 products in another order than
@@ -559,6 +588,291 @@ def coarse_inverse_residual(S):
     return tuple(A.shape), float((eye - A.double() @ X.double()).abs().max())
 
 
+def scaled(K, s):
+    """K with every value times s (a Newton sequence's next Jacobian)."""
+    Ks = K.copy()
+    Ks.data = K.data * s
+    return Ks
+
+
+def drive_warm_sequence(device, structured, tag):
+    """Phase 8: on cavity64_Re1000, compute() and a cold newton_step,
+    then WARM_STEPS newton_step_warm calls threading the factors, step i
+    on the values times 1 + 1e-6 (i + 1) (bench.py's warm sequence).
+    Each step's true f64 relres against its own scaled K must be
+    <= RELRES_OK and its inner iterations within 2 of the JAX package's
+    CPU count.  Returns (solver, K, b, K1 launches per warm step)."""
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    from hymls_tpu_torch.stencils import create_testvector
+
+    K, b = cavity64()
+    params = cavity64_params(structured)
+    S = IterativeRefinementSolver(K, params, testvector=create_testvector(
+        params, K), device=device)
+    S.compute()
+    cold = S.newton_step(S.op64.vals, S.solver.op.vals, b)
+    fac = S.precond.factors
+    launches = []
+    for i, anchor in enumerate(ANCHOR_WARM[tag]):
+        s = 1.0 + 1e-6 * (i + 1)
+        n0 = dia_matvec.launches
+        res, fac = S.newton_step_warm(S.op64.vals * s, S.solver.op.vals * s,
+                                      b, fac)
+        launches.append(dia_matvec.launches - n0)
+        x = res.x.cpu().numpy()
+        relres = float(np.linalg.norm(scaled(K, s) @ x - b)
+                       / np.linalg.norm(b))
+        log(f"{tag} warm step {i}: inner f32 iterations {res.iters} "
+            f"(JAX CPU {anchor}; cold step {cold.iters}), true f64 relres "
+            f"{relres:.3e}, dia_spmv launches {launches[-1]}")
+        if not relres <= RELRES_OK or not np.isfinite(x).all():
+            raise RuntimeError(f"{tag} warm step {i}: relres {relres:.3e}")
+        if abs(res.iters - anchor) > 2:
+            raise RuntimeError(f"{tag} warm step {i}: {res.iters} inner "
+                               f"iterations, JAX CPU anchor {anchor}")
+    if S.precond._structured_active != (structured is not False):
+        raise RuntimeError(f"{tag} warm path on the wrong apply")
+    if min(launches) <= 0:
+        raise RuntimeError(f"a {tag} warm step never launched dia_spmv")
+    return S, K, b, launches
+
+
+def host_syncs(fn):
+    """Synchronizing CUDA calls (scalar reads, error checks) made by one
+    call of `fn`, as torch's sync debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_warm(solvers, K, b, rounds: int = 5):
+    """Phase 8's times, both applies interleaved as in phase 7 (A, B, B,
+    A per round): compute() against recompute() (each with the
+    structured repack where that apply is active) on values scaled
+    anew per call, the repack alone, and newton_step against
+    newton_step_warm; then the host syncs of one compute() and one
+    recompute(), and the device busy time (torch.profiler) of each of
+    the four."""
+    tags = list(solvers)
+    order = tags + tags[::-1]
+    samples = {t: {"compute": [], "recompute": [], "repack": [],
+                   "cold_step": [], "warm_step": []} for t in tags}
+    facs = {t: solvers[t].precond.factors for t in tags}
+    j = 0
+    for _ in range(rounds):
+        for tag in order:
+            S = solvers[tag]
+            P = S.precond
+            s_ = samples[tag]
+            j += 1
+            s = 1.0 + 1e-6 * j
+            Ks, Ks2 = scaled(K, s), scaled(K, s + 5e-7)
+            s_["compute"].append(wall_median(lambda: P.compute(Ks), 1)[0])
+            s_["recompute"].append(wall_median(lambda: P.recompute(Ks2),
+                                               1)[0])
+            if P._structured_active:
+                s_["repack"].append(wall_median(
+                    lambda: P.apply_factors_from(P._factors), 1)[0])
+            v64, v32 = S.op64.vals * s, S.solver.op.vals * s
+            s_["cold_step"].append(wall_median(
+                lambda: S.newton_step(v64, v32, b), 1)[0])
+            t, (_, facs[tag]) = wall_median(
+                lambda: S.newton_step_warm(v64, v32, b, facs[tag]), 1)
+            s_["warm_step"].append(t)
+    out = {}
+    for tag in tags:
+        S = solvers[tag]
+        P = S.precond
+        med = {k: statistics.median(x) for k, x in samples[tag].items() if x}
+        K1, K2 = scaled(K, 1.0 + 1e-6), scaled(K, 1.0 + 2e-6)
+        syncs_cold = host_syncs(lambda: P.compute(K1))
+        syncs_warm = host_syncs(lambda: P.recompute(K2))
+        busy = {"compute": device_events(lambda: P.compute(K1))[2],
+                "recompute": device_events(lambda: P.recompute(K2))[2]}
+        v64, v32 = S.op64.vals, S.solver.op.vals
+        busy["cold_step"] = device_events(
+            lambda: S.newton_step(v64, v32, b))[2]
+        busy["warm_step"] = device_events(
+            lambda: S.newton_step_warm(v64, v32, b, P.factors))[2]
+        rep = (f" (each with the repack, alone {med['repack']:.4f} s)"
+               if "repack" in med else "")
+        log(f"{tag} warm times: compute {med['compute']:.4f} s, recompute "
+            f"{med['recompute']:.4f} s{rep}; newton_step "
+            f"{med['cold_step']:.4f} s, newton_step_warm "
+            f"{med['warm_step']:.4f} s (median of {2 * rounds}, "
+            f"interleaved, wall clock); host syncs: {syncs_cold} per "
+            f"compute, {syncs_warm} per recompute; device busy (profiled) "
+            f"compute {busy['compute'] / 1e3:.2f} / recompute "
+            f"{busy['recompute'] / 1e3:.2f} ms, newton_step "
+            f"{busy['cold_step'] / 1e3:.2f} / newton_step_warm "
+            f"{busy['warm_step'] / 1e3:.2f} ms")
+        out[tag] = {**{f"{k}_s": v for k, v in med.items()},
+                    **{f"{k}_device_busy_ms": v / 1e3
+                       for k, v in busy.items()},
+                    "host_syncs_compute": syncs_cold,
+                    "host_syncs_recompute": syncs_warm}
+    return out
+
+
+def cavity64_bordered_params():
+    """bench.py's cavity64 parameters with the reference cavity setup's
+    constant-pressure border (tests/test_bordered.py:48-83): 'Fix
+    Pressure Level' off, 'Null Space Type' 'Constant P'."""
+    params = cavity64_params("Auto")
+    params.sublist("Preconditioner")["Fix Pressure Level"] = False
+    params.sublist("Driver")["Null Space Type"] = "Constant P"
+    return params
+
+
+def drive_bordered(device):
+    """Phase 9: the bordered f64 GMRES solve on cavity64_Re1000 with the
+    constant-pressure border; x_ex from default_rng(7) projected off the
+    border, b = K x_ex.  Returns the checks' numbers and a function that
+    computes and solves again (for timing)."""
+    from hymls_tpu_torch import Preconditioner, Solver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.stencils import create_nullspace, create_testvector
+    from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+    K = cavity_jacobian(64, 64, re=1000.0).tocsr()
+    params = cavity64_bordered_params()
+    ns = create_nullspace(params, K.shape[0])
+    x_ex = np.random.default_rng(7).standard_normal(K.shape[0])
+    x_ex -= ns @ (ns.T @ x_ex)
+    b = K @ x_ex
+    P = Preconditioner(K, params, testvector=create_testvector(params, K),
+                       device=device)
+    S = Solver(K, P, params, device=device)
+    S.set_border(ns)
+    if P._structured is None or P._structured_active:
+        raise RuntimeError(f"bordered: structured program built "
+                           f"{P._structured is not None}, active "
+                           f"{P._structured_active}; want built, inactive")
+    t0 = time.perf_counter()
+    P.compute()
+    x, res = S.apply_inverse(b)
+    x = x.cpu().numpy()
+    t = time.perf_counter() - t0
+    launches = dia_matvec.launches
+    relres = float(np.linalg.norm(K @ x - b) / np.linalg.norm(b))
+    coeff = float(np.abs(S._border_coeffs).max())
+    log(f"bordered f64 GMRES: {res.iters} iterations (JAX CPU "
+        f"{ANCHOR_BORDERED}), true relres {relres:.3e}, |border coeffs| "
+        f"{coeff:.3e}, structured program inactive; compute + solve "
+        f"{t:.4f} s (first call); dia_spmv launches {launches}")
+    if not relres <= RELRES_OK or abs(res.iters - ANCHOR_BORDERED) > 1 \
+            or not coeff <= 1e-8 or not np.isfinite(x).all():
+        raise RuntimeError(f"bordered: {res.iters} iterations, relres "
+                           f"{relres:.3e}, |border coeffs| {coeff:.3e}")
+    if launches <= 0:
+        raise RuntimeError("the bordered path never launched dia_spmv")
+
+    def again():
+        P.compute()
+        return S.apply_inverse(b)[0]
+    return {"iters": res.iters, "relres": relres, "border_coeff": coeff,
+            "launches": launches, "first_s": t}, again
+
+
+def bratu(nx):
+    """tests/test_nonlinear.py:_bratu: -lap(u) = lam exp(u) on nx^2,
+    residual, Jacobian and dF/dlam on the host."""
+    import scipy.sparse as sp
+    from hymls_tpu_torch.stencils import laplace2d
+    L = -laplace2d(nx, nx)
+    h2 = 1.0 / (nx + 1) ** 2
+
+    def residual(x, lam):
+        return L @ x - lam * h2 * np.exp(x)
+
+    def jacobian(x, lam):
+        J = (L - sp.diags(lam * h2 * np.exp(x))).tocsr()
+        J.sum_duplicates()
+        J.sort_indices()
+        return J
+
+    def dres_dlam(x, lam):
+        return -h2 * np.exp(x)
+
+    return residual, jacobian, dres_dlam
+
+
+def bratu_params(nx):
+    """tests/test_nonlinear.py:_params."""
+    from hymls_tpu_torch import Params
+    return Params({
+        "Problem": {"Equations": "Laplace", "Dimension": 2, "nx": nx,
+                    "ny": nx},
+        "Solver": {"Krylov Method": "GMRES", "Initial Vector": "Zero",
+                   "Iterative Solver": {"Maximum Iterations": 100,
+                                        "Convergence Tolerance": 1e-12}},
+        "Preconditioner": {"Separator Length": 4, "Number of Levels": 1}})
+
+
+def drive_continuation(device):
+    """Phase 10: NewtonSolver to lam = 0.5 on Bratu 64^2, then
+    Continuation.trace through the fold (ds, steps = BRATU_DS,
+    BRATU_STEPS), held to tests/test_nonlinear.py's criteria and to the
+    JAX package's CPU trace.  Returns the checks' numbers."""
+    from hymls_tpu_torch.nonlinear import Continuation, NewtonSolver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+
+    nx = 64
+    residual, jacobian, dres_dlam = bratu(nx)
+    params = bratu_params(nx)
+    t0 = time.perf_counter()
+    start = NewtonSolver(lambda x: residual(x, 0.5),
+                         lambda x: jacobian(x, 0.5), params,
+                         device=device).solve(np.zeros(nx * nx))
+    t_newton = time.perf_counter() - t0
+    newton_launches = dia_matvec.launches
+    if not start.converged:
+        raise RuntimeError("Bratu Newton solve did not converge")
+    t0 = time.perf_counter()
+    branch = Continuation(residual, jacobian, dres_dlam, params,
+                          device=device).trace(start.x, 0.5, ds=BRATU_DS,
+                                               n_steps=BRATU_STEPS)
+    t_trace = time.perf_counter() - t0
+    launches = dia_matvec.launches - newton_launches
+    lams = [p.lam for p in branch]
+    iters = [p.newton_iters for p in branch[1:]]
+    # bordered solves: the initial tangent, then it - 1 per point (the
+    # it-th pass only finds the corrector converged)
+    solves = 1 + sum(it - 1 for it in iters)
+    lam_max, lam_last = float(max(lams)), float(lams[-1])
+    log(f"Bratu {nx}^2: Newton to lam 0.5 in {start.iterations} "
+        f"iterations, {t_newton:.3f} s, dia_spmv launches "
+        f"{newton_launches}")
+    log(f"continuation: {len(branch) - 1} steps of ds {BRATU_DS}, Newton "
+        f"iterations {iters}; max lam {lam_max!r} (JAX CPU "
+        f"{ANCHOR_LAM_MAX!r}), last lam {lam_last!r} (JAX CPU "
+        f"{ANCHOR_LAM_LAST!r}); {solves} correctors in {t_trace:.3f} s, "
+        f"{t_trace / solves * 1e3:.2f} ms and "
+        f"{launches / solves:.1f} dia_spmv launches per corrector")
+    if not (lam_max > 6.0 and lam_last < lam_max - 0.3
+            and all(it < 12 for it in iters)):
+        raise RuntimeError(f"continuation did not pass the fold: {lams}")
+    if abs(lam_max - ANCHOR_LAM_MAX) > 1e-6 or \
+            abs(lam_last - ANCHOR_LAM_LAST) > 1e-6:
+        raise RuntimeError(f"continuation: max lam {lam_max!r}, last "
+                           f"{lam_last!r}, off the JAX CPU trace")
+    if launches <= 0 or newton_launches <= 0:
+        raise RuntimeError("the continuation path never launched dia_spmv")
+    return {"newton_launches": newton_launches, "launches": launches,
+            "correctors": solves, "lam_max": lam_max, "lam_last": lam_last,
+            "newton_s": t_newton, "trace_s": t_trace,
+            "ms_per_corrector": t_trace / solves * 1e3,
+            "launches_per_corrector": launches / solves}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -640,6 +954,29 @@ def main(argv=None) -> int:
     log(f"host scalar read {statistics.median(reads) * 1e6:.1f} us "
         f"(median of 50)")
 
+    # -- 8. warm Newton sequence, both applies ----------------------------------
+    warm, warm_launches = {}, {}
+    for structured, tag in (("Auto", "structured"), (False, "generic")):
+        reset_counts()
+        Sw, Kw, bw, per_step = drive_warm_sequence(device, structured, tag)
+        warm[tag] = Sw
+        warm_launches[tag] = per_step
+    warm_times = time_warm(warm, Kw, bw)
+    del warm, Sw
+
+    # -- 9. bordered f64 solve ----------------------------------------------------
+    reset_counts()
+    bordered, again = drive_bordered(device)
+    bordered["compute_solve_s"] = wall_median(again, 3)[0]
+    log(f"bordered compute + solve {bordered['compute_solve_s']:.4f} s "
+        f"(median of 3, wall clock)")
+    del again
+
+    # -- 10. continuation through the fold -------------------------------------
+    reset_counts()
+    cont = drive_continuation(device)
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     main32 = dia["cavity64"]["f32"]
     sweep = {shape: {tag: {k: r[k] for k in (
         "device_us", "bound_us", "roofline_share", "library_us", "call_us",
@@ -652,8 +989,16 @@ def main(argv=None) -> int:
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
         "replaces": "hymls_tpu/ops/pallas_spmv.py:50",
         "launches": launches,
-        "launches_by_path": {"structured": launches,
-                             "generic": launches_gen},
+        "launches_by_path": {
+            "structured": launches, "generic": launches_gen,
+            **{f"warm_{tag}": sum(n) for tag, n in warm_launches.items()},
+            "bordered": bordered["launches"],
+            "newton_bratu": cont["newton_launches"],
+            "continuation": cont["launches"]},
+        "launches_per": {
+            **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
+            "bordered_solve": bordered["launches"],
+            "continuation_corrector": cont["launches_per_corrector"]},
         "max_abs_err": max(r["max_abs_err"] for recs in dia.values()
                            for r in recs.values()),
         "max_rel_err": max(r["max_rel_err"] for recs in dia.values()
@@ -690,8 +1035,8 @@ def main(argv=None) -> int:
         **{f"plain_call_ms_n{n}": mv[n]["plain_ms"] for n in MV_SIZES},
         "probe_ms_per_iter": probe,
         "probe_ms_per_iter_n8192": probe_big}],
-        "paths": times}))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+        "paths": times, "warm": warm_times, "bordered": bordered,
+        "continuation": cont}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -3,8 +3,9 @@
 Torch counterpart of hymls_tpu/core/dense.py on the branches its CPU
 runs take (`on_accelerator()` is false there): library inverses
 (`torch.linalg.inv`, LAPACK on the CPU and cuSOLVER on the card) with
-a residual-adaptive Newton polish in f64, and an LU factorization for
-the coarse system above 2048 unknowns.  The TPU workarounds of the
+a residual-adaptive Newton polish in f64, the warm-started inverse of
+value-only recomputes, and an LU factorization for the coarse system
+above 2048 unknowns.  The TPU workarounds of the
 reference (one-hot Gauss-Jordan, the Newton-Schulz-polished seed for
 the coarse inverse, chunked batches) are not ported: the card has
 native f32 and f64 LU.
@@ -66,6 +67,39 @@ def inv_newton(A, refine: int = 6):
     if A.dtype == torch.float64 and refine:
         X = _newton_refine(A, X, max_steps=refine)
     return X
+
+
+def inv_chain(A):
+    """The reference's inverse for the factor-upcast values chain on
+    the branch its CPU runs take: native f64 LU, so `inv_newton`."""
+    return inv_newton(A)
+
+
+def warm_inv(A, X0, fresh_fn=None, accept=0.25, max_steps=4, tol=None):
+    """Warm-started (batched) dense inverse for value-only recomputes
+    (Newton and continuation sequences).  When the previous inverse X0
+    still contracts (max|I - A X0| < accept over the whole batch, one
+    gate as in the reference's `lax.cond`), polish it with
+    residual-adaptive Newton-Schulz steps; otherwise `fresh_fn(A)`
+    (`inv_newton` by default).  The gate is read on the host: one
+    scalar, so only the branch taken runs."""
+    if fresh_fn is None:
+        fresh_fn = inv_newton
+    if A.numel() == 0:
+        return fresh_fn(A)
+    X0 = X0.to(A.dtype)
+    if tol is None:
+        tol = 1e-13 if A.dtype == torch.float64 else 1e-6
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    r0 = torch.max(torch.abs(eye - torch.matmul(A, X0)))
+    if bool(r0 < accept):
+        return _newton_refine(A, X0, max_steps=max_steps, tol=tol)
+    return fresh_fn(A)
+
+
+def warm_inv_chain(A, X0):
+    """`inv_chain` warm-started, on the reference's CPU branch."""
+    return warm_inv(A, X0, fresh_fn=inv_newton)
 
 
 def dense_factor(A) -> dict:

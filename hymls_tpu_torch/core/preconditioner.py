@@ -10,13 +10,16 @@ hymls_tpu/core/preconditioner.py:
   * `compute_fn(vals, dplans, dcoarse)` maps the matrix value array to
     all factorizations of all levels: batched dense interior inverses,
     the Householder-transformed Schur assembly, the non-Vsum block
-    inverses and the dense coarse factor;
+    inverses and the dense coarse factor; warm (`prev`: every dense
+    inverse polished from the previous step's) and bordered
+    (`border_vals`: the system [K V; W' C]);
   * `apply_fn(factors, aplans, b)` is the V-cycle.  By default
     ('Structured Apply' = "Auto", as in the reference) it is the
     gather-free structured apply of core/structured.py whenever its
     detection succeeds within the element budget; otherwise the
     generic apply: gathers + batched matvecs per level, the coarse
-    solve at the bottom.
+    solve at the bottom.  `apply_bordered_fn` is the bordered V-cycle,
+    always on the generic plans.
 
 The reference's sort/scatter permutation gathers (core/permute.py) are
 TPU workarounds; here every static map is a plain index gather, which
@@ -38,7 +41,8 @@ from ..partition.skew import SkewCartesianPartitioner
 from ..partition.hierarchical import build_hierarchy
 from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
-from .dense import (inv_newton as _inv, dense_factor as _dense_factor,
+from .dense import (inv_newton as _inv, warm_inv as _warm_inv,
+                    dense_factor as _dense_factor,
                     dense_solve as _dense_solve, _matmul)
 
 
@@ -143,14 +147,17 @@ def _device_coarse(cp: CoarsePlan, device) -> Dict[str, torch.Tensor]:
 # per-level numerics
 # ---------------------------------------------------------------------------
 
-def _compute_level(vals, dp):
-    """Factor one level: returns (factors dict, next-level values)."""
+def _compute_level(vals, dp, prev=None):
+    """Factor one level: returns (factors dict, next-level values).
+    With `prev`, the previous factor dict of this level (warm
+    recompute), the dense inverses are Newton-Schulz-polished from
+    their previous values (dense.warm_inv) instead of re-factored."""
     dtype = vals.dtype
     A11 = _pgather(dp, "A11_idx", vals)
     ni = A11.shape[-1]
     eye_i = torch.eye(ni, dtype=dtype, device=vals.device)
     A11 = A11 + eye_i[None] * (~dp["int_mask"])[:, :, None]
-    A11inv = _inv(A11)
+    A11inv = _inv(A11) if prev is None else _warm_inv(A11, prev["A11inv"])
 
     A12 = _pgather(dp, "A12_idx", vals)
     A21 = _pgather(dp, "A21_idx", vals)
@@ -176,7 +183,7 @@ def _compute_level(vals, dp):
     # through instead of producing NaNs
     zero_rows = torch.sum(torch.abs(B), dim=-1) == 0
     B = B + eye_b[None] * zero_rows[:, :, None]
-    blkinv = _inv(B)
+    blkinv = _inv(B) if prev is None else _warm_inv(B, prev["blkinv"])
 
     nxt = sc[dp["next_idx"]]
     nxt = _drop_rel_diag(nxt, dp["next_rows"], dp["next_cols"],
@@ -186,11 +193,15 @@ def _compute_level(vals, dp):
     return factors, nxt
 
 
-def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n):
+def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n, prev=None):
     """Dense coarse factorization (reference CoarseSolver::Compute:
-    RelFullDiag drop + PutDirichlet + direct LU)."""
-    return _dense_factor(
-        _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n))
+    RelFullDiag drop + PutDirichlet + direct LU).  With `prev` (warm
+    recompute) an explicit inverse is polished from the previous one;
+    LU factors (above 2048 unknowns) are recomputed cold."""
+    A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
+    if prev is not None and "inv" in prev:
+        return {"inv": _warm_inv(A, prev["inv"])}
+    return _dense_factor(A)
 
 
 def _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n):
@@ -242,6 +253,93 @@ def _apply_level(b, fac, dp, solve_next):
 
     src = torch.cat([x1.reshape(-1), x2])
     return _pgather(dp, "node_src", src)
+
+
+# ---------------------------------------------------------------------------
+# the bordered system [K V; W' C]
+# ---------------------------------------------------------------------------
+
+def _ext_rows(M):
+    """Append the zero sentinel row to an (n, m) block."""
+    return torch.cat([M, M.new_zeros((1, M.shape[1]))])
+
+
+def _apply_ot_multi(t, dp):
+    """`_apply_ot` on the columns of t (n_sep, m), gather form."""
+    w_vals = dp["w_vals"]
+    dots = torch.sum(w_vals[:, :, None] * _ext_rows(t)[dp["w_pos"]], dim=1)
+    w = _ext(w_vals.reshape(-1))[dp["ot_inv_idx"]]
+    return 2.0 * w[:, None] * _ext_rows(dots)[dp["ot_row_of"]] - t
+
+
+def _compute_level_border(fac, dp, V, W, C):
+    """Border propagation through one level (reference
+    Preconditioner::ComputeBorder + SchurPreconditioner::ComputeBorder):
+      Q1 = A11^{-1} V1;  SchurV = V2 - A21 Q1;
+      SchurW = W2 - (A11^{-1} A12)^T W1;  C' = C - W1^T Q1;
+    then the Householder transform of SchurV and SchurW, whose Vsum rows
+    are the next level's border.  Returns (border factors, V', W', C')."""
+    m = V.shape[1]
+    V1 = _ext_rows(V)[dp["int_pos"]]                 # (s, ni, m)
+    W1 = _ext_rows(W)[dp["int_pos"]]
+    Q1 = torch.matmul(fac["A11inv"], V1)
+
+    def gather_sep(contrib):
+        flat = _ext_rows(contrib.reshape(-1, m))
+        return torch.sum(flat[dp["sep_from_sd"]], dim=1)
+
+    sep = dp["sep_pos_in_nodes"]
+    schurV = V[sep] - gather_sep(torch.matmul(fac["A21"], Q1))
+    schurW = W[sep] - gather_sep(torch.matmul(fac["G"].transpose(1, 2), W1))
+    Cp = C - W1.reshape(-1, m).T @ Q1.reshape(-1, m)
+    bV = _apply_ot_multi(schurV, dp)
+    bW = _apply_ot_multi(schurW, dp)
+    bfac = {"Q1": Q1, "W1": W1, "bW": bW}
+    return bfac, bV[dp["vsum_pos"]], bW[dp["vsum_pos"]], Cp
+
+
+def _coarse_factor_aug(vals, rows, cols, diag_entry, fix_rows, n, V, W, C):
+    """Bordered coarse factorization: the dense factor of [A V; W' C]
+    (reference CoarseSolver::Compute + AugmentedMatrix)."""
+    A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
+    return _dense_factor(torch.cat([torch.cat([A, V], dim=1),
+                                    torch.cat([W.T, C], dim=1)]))
+
+
+def _apply_level_bordered(b, T, fac, dp, solve_next):
+    """Bordered variant of `_apply_level` (reference
+    Preconditioner::ApplyInverse(B,T,X,S) + the bordered
+    SchurPreconditioner::ApplyInverse); `fac["border"]` holds the
+    level's border factors.  Returns (x, S)."""
+    bfac = fac["border"]
+    b1 = _pgather(dp, "int_pos", b)
+    x1 = _bmm(fac["A11inv"], b1)
+
+    y2c = _bmm(fac["A21"], x1)
+    y2 = torch.sum(_pgather(dp, "sep_from_sd", y2c.reshape(-1)), dim=1)
+    r2 = _pgather(dp, "sep_pos_in_nodes", b) - y2
+
+    # border rhs: q = T - W1' x1
+    W1 = bfac["W1"]
+    q = T - _matmul(W1.reshape(-1, W1.shape[-1]).T, x1.reshape(-1))
+
+    t = _apply_ot(r2, dp)
+    yb = _bmm(fac["blkinv"], _pgather(dp, "blk_pos", t))
+    y = _pgather(dp, "blk_inv_idx", yb.reshape(-1))
+
+    # border correction with the non-Vsum part (Vsum entries of y are 0)
+    Tc = q - _matmul(bfac["bW"].T, y)
+
+    x_next, S = solve_next(_pgather(dp, "vsum_pos", t), Tc)
+    n_vsum = dp["vsum_pos"].shape[0]
+    y = torch.where(dp["vsum_slot"] < n_vsum,
+                    _pgather(dp, "vsum_slot", x_next), y)
+    x2 = _apply_ot(y, dp)
+
+    x1 = x1 - _bmm(fac["G"], _pgather(dp, "sd_sep_pos", x2))
+    x1 = x1 - _matmul(bfac["Q1"], S)
+    src = torch.cat([x1.reshape(-1), x2])
+    return _pgather(dp, "node_src", src), S
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +400,7 @@ class Preconditioner:
             testvector = np.ones(n)
         self.testvector = np.asarray(testvector, dtype=np.float64)
         self._factors = None
+        self._border = None
         self.initialize()
 
     # -- symbolic setup ----------------------------------------------------
@@ -388,8 +487,9 @@ class Preconditioner:
 
     @property
     def _structured_active(self) -> bool:
-        """Whether `apply_fn` runs the structured program."""
-        return self._structured is not None
+        """Whether `apply_fn` runs the structured program.  Bordered
+        applies keep the generic plans, as in the reference."""
+        return self._structured is not None and self._border is None
 
     @property
     def _aplans(self):
@@ -400,18 +500,36 @@ class Preconditioner:
         return self._aplans_gen
 
     # -- numerics (plain functions of their tensor arguments) ---------------
-    def compute_fn(self, vals, dplans, dcoarse):
+    def compute_fn(self, vals, dplans, dcoarse, border_vals=None,
+                   prev=None):
         """Factor tree {"levels": [{A11inv, G, A21, blkinv, sc}, ...],
         "coarse": {"inv"} or {"lu", "piv"}} of the value array `vals`,
-        computed in this preconditioner's dtype."""
+        computed in this preconditioner's dtype.
+
+        `border_vals` (V, W, C): the bordered factorization; each level
+        gains its border factors under "border" and the coarse factor
+        is that of [A V; W' C].  `prev`, an earlier factor tree of the
+        same pattern: the warm recompute (the reference's
+        `recompute_fn`), every dense inverse polished from its previous
+        value with a residual-gated cold fallback (dense.warm_inv)."""
         v = vals.to(self.dtype)
         facs = []
         for lev in range(self.max_level):
-            f, v = _compute_level(v, dplans[lev])
+            f, v = _compute_level(
+                v, dplans[lev], None if prev is None else prev["levels"][lev])
             facs.append(f)
-        coarse = _coarse_factor(v, dcoarse["rows"], dcoarse["cols"],
-                                dcoarse["diag_entry"], dcoarse["fix_rows"],
-                                self.coarse_plan.n)
+        coarse_args = (v, dcoarse["rows"], dcoarse["cols"],
+                       dcoarse["diag_entry"], dcoarse["fix_rows"],
+                       self.coarse_plan.n)
+        if border_vals is None:
+            coarse = _coarse_factor(
+                *coarse_args, prev=None if prev is None else prev["coarse"])
+        else:
+            V, W, C = (a.to(self.dtype) for a in border_vals)
+            for lev in range(self.max_level):
+                facs[lev]["border"], V, W, C = _compute_level_border(
+                    facs[lev], dplans[lev], V, W, C)
+            coarse = _coarse_factor_aug(*coarse_args, V, W, C)
         return {"levels": facs, "coarse": coarse}
 
     def apply_fn(self, factors, aplans, b):
@@ -431,11 +549,36 @@ class Preconditioner:
                                 lambda r: solve_at(lev + 1, r))
         return solve_at(0, b)
 
+    def apply_bordered_fn(self, factors, dplans, b, T):
+        """[x; s] = [M V; W' C]^{-1} [b; T] on a pruned bordered factor
+        tree and the generic plans; returns (x, s)."""
+        def solve_at(lev, rhs, Tc):
+            if lev == self.max_level:
+                sol = _dense_solve(factors["coarse"], torch.cat([rhs, Tc]))
+                return sol[:rhs.shape[0]], sol[rhs.shape[0]:]
+            return _apply_level_bordered(
+                rhs, Tc, factors["levels"][lev], dplans[lev],
+                lambda r, t: solve_at(lev + 1, r, t))
+        return solve_at(0, b, T)
+
     # -- public API ----------------------------------------------------------
     def compute(self, K: Optional[sp.csr_matrix] = None):
         """Numeric factorization.  If K is given it must have the same
         pattern as the constructor matrix (reference
         Preconditioner::SetMatrix reuse semantics)."""
+        return self._factorize(K, prev=None)
+
+    def recompute(self, K: Optional[sp.csr_matrix] = None):
+        """Warm value-only refactorization: `compute(K)` with every
+        dense inverse Newton-Schulz-polished from the current factors
+        (dense.warm_inv, with its residual-gated cold fallback).  The
+        path for Newton and continuation loops whose successive
+        matrices differ modestly.  Without factors yet, or with a
+        border set, it computes cold."""
+        warm = self._factors is not None and self._border is None
+        return self._factorize(K, prev=self._factors if warm else None)
+
+    def _factorize(self, K, prev):
         if K is not None:
             K = K.tocsr()
             K.sum_duplicates()
@@ -445,16 +588,35 @@ class Preconditioner:
             self.K = K
         vals = torch.as_tensor(self.K.data, dtype=self.dtype,
                                device=self.device)
-        self._factors = self.compute_fn(vals, self._dplans, self._dcoarse)
+        self._factors = self.compute_fn(vals, self._dplans, self._dcoarse,
+                                        self._border, prev)
         self._sfactors = (self.apply_factors_from(self._factors)
                           if self._structured_active else None)
         return self
 
-    def recompute(self, K: Optional[sp.csr_matrix] = None):
-        raise _unsupported("warm recompute (warm_inv)", "M3")
-
     def set_border(self, V, W=None, C=None):
-        raise _unsupported("the bordered preconditioner", "M9")
+        """Add a border [K V; W' C] to the whole hierarchy (reference
+        Preconditioner::SetBorder): W=None means W = V, C=None means 0,
+        and V=None removes the border.  The factors are recomputed at
+        the next use; while a border is set the applies take the
+        generic plans."""
+        self._factors = None
+        self._sfactors = None
+        if V is None:
+            self._border = None
+            return self
+        V = np.asarray(V)
+        if V.ndim == 1:
+            V = V[:, None]
+        W = V if W is None else np.asarray(W)
+        if W.ndim == 1:
+            W = W[:, None]
+        m = V.shape[1]
+        C = np.zeros((m, m)) if C is None else np.asarray(C)
+        self._border = tuple(torch.as_tensor(a, dtype=self.dtype,
+                                             device=self.device)
+                             for a in (V, W, C))
+        return self
 
     @property
     def factors(self):
@@ -465,10 +627,11 @@ class Preconditioner:
     @staticmethod
     def _prune_factors(factors):
         """Apply-side view of the factor tree (same tensors, no copies):
-        the V-cycle reads A11inv/G/A21/blkinv per level and the coarse
-        factor; the assembled Schur values are dropped."""
-        keep = ("A11inv", "G", "A21", "blkinv")
-        return {"levels": [{k: f[k] for k in keep}
+        the V-cycle reads A11inv/G/A21/blkinv (and the border factors,
+        if any) per level and the coarse factor; the assembled Schur
+        values are dropped."""
+        keep = ("A11inv", "G", "A21", "blkinv", "border")
+        return {"levels": [{k: f[k] for k in keep if k in f}
                            for f in factors["levels"]],
                 "coarse": factors["coarse"]}
 
@@ -491,6 +654,21 @@ class Preconditioner:
         return pruned
 
     def apply_inverse(self, b):
-        """x = P^{-1} b for a single vector (tensor or numpy)."""
+        """x = P^{-1} b for a single vector (tensor or numpy).  With a
+        border set this solves with a zero border right-hand side
+        (reference BorderedOperator ApplyInverse convention)."""
         b = torch.as_tensor(b, dtype=self.dtype, device=self.device)
+        if self._border is not None:
+            T = b.new_zeros(self._border[0].shape[1])
+            return self.apply_inverse_bordered(b, T)[0]
         return self.apply_fn(self.apply_factors, self._aplans, b)
+
+    def apply_inverse_bordered(self, b, t):
+        """(x, s) = [P V; W' C]^{-1} [b; t]."""
+        if self._border is None:
+            raise ValueError("apply_inverse_bordered needs a border "
+                             "(set_border)")
+        return self.apply_bordered_fn(
+            self.apply_factors, self._aplans_gen,
+            torch.as_tensor(b, dtype=self.dtype, device=self.device),
+            torch.as_tensor(t, dtype=self.dtype, device=self.device))

@@ -19,7 +19,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import Params
-from ..core.preconditioner import Preconditioner, _unsupported
+from ..core.preconditioner import Preconditioner
 from ..ops.spmv import make_operator
 from .solver import Solver
 from .krylov import KrylovResult
@@ -69,7 +69,8 @@ class IterativeRefinementSolver:
         return self
 
     def set_border(self, V, W=None, C=None):
-        raise _unsupported("the bordered solver", "M9")
+        self.solver.set_border(V, W, C)
+        return self
 
     def refine(self, vals64, vals32, factors, aplans, b) -> KrylovResult:
         """The refinement loop: f64 residual -> f32 Krylov correction ->
@@ -129,6 +130,22 @@ class IterativeRefinementSolver:
         res = self.refine(vals64, vals32, factors, P._aplans, b)
         self._last_result = res
         return res
+
+    def newton_step_warm(self, vals64, vals32, b, prev):
+        """`newton_step` threading the factor tree through a Newton
+        sequence (the counterpart of the reference's
+        `newton_step_warm_fn`): the dense inverses are polished from
+        `prev` (seed it with `precond.factors` of a cold compute), each
+        with its residual-gated cold fallback.  Returns
+        (KrylovResult, factors) with the unpruned factor tree for the
+        next step."""
+        P = self.precond
+        factors = P.compute_fn(vals64, P._dplans, P._dcoarse, prev=prev)
+        b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
+        res = self.refine(vals64, vals32, P.apply_factors_from(factors),
+                          P._aplans, b)
+        self._last_result = res
+        return res, factors
 
     def solve(self, b):
         """Refinement solve with the current factors; returns x."""

@@ -30,6 +30,7 @@ def test_imports_without_jax():
         "import hymls_tpu_torch.convert, hymls_tpu_torch.ops.dia_spmv\n"
         "import hymls_tpu_torch.core.structured\n"
         "import hymls_tpu_torch.tools.loop_pathology_bench\n"
+        "import hymls_tpu_torch.nonlinear\n"
         "assert not any(m == 'hymls_tpu' or m.startswith('hymls_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok')\n")
