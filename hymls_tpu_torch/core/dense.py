@@ -69,10 +69,25 @@ def inv_newton(A, refine: int = 6):
     return X
 
 
-def inv_chain(A):
-    """The reference's inverse for the factor-upcast values chain on
-    the branch its CPU runs take: native f64 LU, so `inv_newton`."""
-    return inv_newton(A)
+def inv_chain(A, force_hybrid: bool = False):
+    """The reference's inverse for the factor-upcast values chain.  By
+    default the branch its CPU runs take: native f64 LU (the card has
+    one too), so `inv_newton`.
+
+    `force_hybrid` is the reference's accelerator branch, kept as a
+    function and used by nothing on the solve paths: an f32 seed
+    inverse and one fixed Newton step with the precision split, the
+    residual R = I - A X in f64 (it is a cancellation) and the
+    correction X R in f32 (|R| ~ 1e-5 makes its rounding O(1e-12)).
+    Accurate to ~cond^2 eps32^2, enough for factors that are stored in
+    f32 anyway."""
+    if A.dtype != torch.float64 or not force_hybrid:
+        return inv_newton(A)
+    X32 = _batched_inv(A.to(torch.float32))
+    X = X32.to(torch.float64)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    R = eye - torch.matmul(A, X)
+    return X + torch.matmul(X32, R.to(torch.float32)).to(torch.float64)
 
 
 def warm_inv(A, X0, fresh_fn=None, accept=0.25, max_steps=4, tol=None):

@@ -1,13 +1,12 @@
 """The multilevel preconditioner: torch numerics + host orchestration.
 
-Torch counterpart of the block-diagonal, L >= 1 path of
-hymls_tpu/core/preconditioner.py:
+Torch counterpart of hymls_tpu/core/preconditioner.py:
 
   * `initialize` partitions every level and builds the static plans on
     the host with the same numpy code as the reference (core/plan.py
     and partition/ are byte-identical copies), so both packages build
     identical plans;
-  * `compute_fn(vals, dplans, dcoarse)` maps the matrix value array to
+  * `compute_fn(vals, dplans, extra)` maps the matrix value array to
     all factorizations of all levels: batched dense interior inverses,
     the Householder-transformed Schur assembly, the non-Vsum block
     inverses and the dense coarse factor; warm (`prev`: every dense
@@ -21,12 +20,21 @@ hymls_tpu/core/preconditioner.py:
     solve at the bottom.  `apply_bordered_fn` is the bordered V-cycle,
     always on the generic plans.
 
+Options, as in the reference: 'Number of Levels' = 0 eliminates the
+interiors and solves the full Schur complement densely (`DirectSCPlan`);
+'Apply Dropping' = false skips the Householder transform and keeps the
+whole Schur complement per level; 'B-Grid Transform' builds everything
+on M = T' K T and conjugates each apply with T (two DIA matvecs);
+the 'Preconditioner Variant's live in the plans; 'Factor Precision' =
+'f64' on an f32 preconditioner assembles in f64 and stores f32 factors.
+
 The reference's sort/scatter permutation gathers (core/permute.py) are
 TPU workarounds; here every static map is a plain index gather, which
 the reference documents as bit-identical.  Index tensors are int64.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,7 +49,9 @@ from ..partition.skew import SkewCartesianPartitioner
 from ..partition.hierarchical import build_hierarchy
 from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
-from .dense import (inv_newton as _inv, warm_inv as _warm_inv,
+from ..ops.spmv import DiaOperator
+from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
+                    warm_inv as _warm_inv, warm_inv_chain as _warm_chain,
                     dense_factor as _dense_factor,
                     dense_solve as _dense_solve, _matmul)
 
@@ -79,11 +89,14 @@ def _drop_rel_diag(vals, rows, cols, diag_entry, tol=SMALL_ENTRY):
     return torch.where(keep, vals, torch.zeros_like(vals))
 
 
-def _apply_ot(t, dp):
+def _apply_ot(t, dp, enabled=True):
     """y = (2 W^T W - I) t — the global per-group Householder transform;
     groups without a reflector row get -I (reference
     HYMLS_Householder.cpp:353-363).  Gather form: each node belongs to
-    at most one reflector row."""
+    at most one reflector row.  `enabled` False ('Apply Dropping' off:
+    the plan holds no reflector at all) is that -I without the gathers."""
+    if not enabled:
+        return -t
     w_vals = dp["w_vals"]
     dots = torch.sum(w_vals * _ext(t)[dp["w_pos"]], dim=1)
     return 2.0 * _ext(w_vals.reshape(-1))[dp["ot_inv_idx"]] * \
@@ -121,9 +134,60 @@ def clamp_sentinels(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return d
 
 
-def _device_level(plan: LevelPlan, dtype, device) -> Dict[str, torch.Tensor]:
+#: the extra maps of the vsum-restricted f64 assembly
+SPLIT_FIELDS = ("vsum_col", "nxt22_v", "nxt11_v")
+
+
+def _vsum_split_arrays(plan: LevelPlan):
+    """Host-side derived maps for the vsum-restricted f64 assembly
+    (_compute_level_split): per-subdomain Vsum column picks and the
+    next-level gathers composed down to the compressed (s, nv, nv)
+    Vsum blocks.  Returns None when any next-level entry reads a
+    non-Vsum T slot (never observed; the reduced matrix is the
+    Vsum-Vsum block by construction, reference
+    HYMLS_SchurPreconditioner.cpp:520-629)."""
+    sp_ = np.asarray(plan.sd_sep_pos)
+    n_sd, ns = sp_.shape
+    n_sep = plan.n_sep
+    isv = np.zeros(n_sep + 1, bool)
+    isv[np.asarray(plan.vsum_pos)] = True
+    valid = (sp_ < n_sep) & isv[np.minimum(sp_, n_sep)]
+    counts = valid.sum(axis=1)
+    nv = max(int(counts.max()) if counts.size else 0, 1)
+    vc = np.full((n_sd, nv), ns, np.int64)
+    loc = np.full((n_sd, ns), nv, np.int64)
+    for s in range(n_sd):
+        cols = np.nonzero(valid[s])[0]
+        vc[s, :cols.size] = cols
+        loc[s, cols] = np.arange(cols.size)
+
+    t_size = n_sd * ns * ns
+    v_size = n_sd * nv * nv
+
+    def compose(f):
+        f = np.asarray(f, np.int64)
+        sent = f >= t_size
+        fc = np.where(sent, 0, f)
+        s_i, rem = np.divmod(fc, ns * ns)
+        i, j = np.divmod(rem, ns)
+        a, b = loc[s_i, i], loc[s_i, j]
+        if np.any(~sent & ((a >= nv) | (b >= nv))):
+            return None
+        return np.where(sent, v_size, s_i * (nv * nv) + a * nv + b)
+
+    n22 = compose(np.asarray(plan.sc22_src)[plan.next_idx])
+    n11 = compose(np.asarray(plan.sc11_gather)[plan.next_idx])
+    if n22 is None or n11 is None:
+        return None
+    return {"vsum_col": vc, "nxt22_v": n22, "nxt11_v": n11}
+
+
+def _device_level(plan: LevelPlan, dtype, device,
+                  split_maps: bool = False) -> Dict[str, torch.Tensor]:
     """One level's static plan as tensors on `device`: index maps as
-    int64, masks as bool, the dense transforms in `dtype`."""
+    int64, masks as bool, the dense transforms in `dtype` (the factor
+    dtype).  `split_maps` adds the maps of the vsum-restricted f64
+    assembly where the plan allows them."""
     d: Dict[str, torch.Tensor] = {}
     for f in LEVEL_FIELDS_INT:
         d[f] = torch.as_tensor(np.asarray(getattr(plan, f), dtype=np.int64),
@@ -134,6 +198,9 @@ def _device_level(plan: LevelPlan, dtype, device) -> Dict[str, torch.Tensor]:
     for f in LEVEL_FIELDS_FLOAT:
         d[f] = torch.as_tensor(np.asarray(getattr(plan, f)), dtype=dtype,
                                device=device)
+    if split_maps:
+        for k, v in (_vsum_split_arrays(plan) or {}).items():
+            d[k] = torch.as_tensor(v, device=device)
     return clamp_sentinels(d)
 
 
@@ -147,17 +214,134 @@ def _device_coarse(cp: CoarsePlan, device) -> Dict[str, torch.Tensor]:
 # per-level numerics
 # ---------------------------------------------------------------------------
 
-def _compute_level(vals, dp, prev=None):
+def _masked_eye(mask, dtype):
+    """Identity rows for the padded slots of a batch of blocks: (s, m)
+    mask of the real slots -> (s, m, m)."""
+    eye = torch.eye(mask.shape[-1], dtype=dtype, device=mask.device)
+    return eye[None] * (~mask)[:, :, None]
+
+
+def _block_inverse(sc, dp, prev, dtype):
+    """The non-Vsum block inverses of the assembled Schur values `sc`,
+    inverted in `dtype`.  Exactly-zero rows (variables whose transformed
+    couplings all vanish) get identity rows: the block solve passes
+    their residual through instead of producing NaNs."""
+    B = _pgather(dp, "blk_idx", sc)
+    B = B + _masked_eye(dp["blk_mask"], B.dtype)
+    zero_rows = torch.sum(torch.abs(B), dim=-1) == 0
+    eye_b = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    B = (B + eye_b[None] * zero_rows[:, :, None]).to(dtype)
+    return _inv(B) if prev is None else _warm_inv(B, prev["blkinv"])
+
+
+def _assemble_sc(T22q, T11q, dp):
+    """Schur values from the per-subdomain (transformed) blocks."""
+    sc = _pgather(dp, "sc22_src", T22q.reshape(-1))
+    return sc + torch.sum(_pgather(dp, "sc11_gather", T11q.reshape(-1)),
+                          dim=1)
+
+
+def _compute_level_split(vals, dp, apply_ot=True, store_dtype=None,
+                         prev=None):
+    """Factor one level with the Vsum-restricted f64 assembly ('Schur
+    Assembly' = 'Vsum f64').
+
+    The f64 arithmetic of the upcast chain protects one consumer: the
+    next-level matrix values, where the recursive Schur cancellation
+    amplifies rounding across levels.  Everything else the
+    factorization produces (A11inv, G, A21, the non-Vsum block
+    inverses) is cast to the apply dtype anyway.  So the full chain
+    runs in `store_dtype` for the apply factors, and a small f64 side
+    chain restricted to the Vsum columns (nv ~ groups per subdomain,
+    below ns) gives the next-level values:
+
+        Qv   = Q E_v                 (s, ns, nv)   one-hot column pick
+        Z    = A11^{-1} (A12 Qv)     store-dtype inverse + one f64
+                                     refinement step
+        T11v = -(Qv' A21) Z          (s, nv, nv)
+        T22v =  Qv' A22 Qv           (s, nv, nv)
+        nxt  = drop(T22v[nxt22_v] + sum T11v[nxt11_v])
+
+    The reference has the split to spare emulated f64 matmuls; the H100
+    has native f64, and what the split costs or saves there is in
+    PERF.md."""
+    dtype = vals.dtype                       # f64 (upcast chain)
+    f32 = store_dtype
+
+    # f64 block gathers, shared by both chains
+    A11 = _pgather(dp, "A11_idx", vals)
+    A11 = A11 + _masked_eye(dp["int_mask"], dtype)
+    A12 = _pgather(dp, "A12_idx", vals)
+    A21 = _pgather(dp, "A21_idx", vals)
+    A22 = _pgather(dp, "A22_idx", vals)
+
+    # store-dtype chain: everything the apply consumes
+    A11s, A12s, A21s, A22s = (x.to(f32) for x in (A11, A12, A21, A22))
+    A11inv = _inv(A11s) if prev is None else _warm_inv(A11s,
+                                                       prev["A11inv"])
+    G = torch.matmul(A11inv, A12s)
+    T11s = -torch.matmul(A21s, G)
+    if apply_ot:
+        Qs = dp["Q"].to(f32)
+        T22q = torch.matmul(torch.matmul(Qs, A22s), Qs)
+        T11q = torch.matmul(torch.matmul(Qs, T11s), Qs)
+    else:
+        T22q, T11q = A22s, T11s
+    sc = _assemble_sc(T22q, T11q, dp)
+    blkinv = _block_inverse(sc, dp, prev, f32)
+
+    # f64 Vsum-restricted chain: the next-level values
+    vc = dp["vsum_col"]                       # (s, nv), sentinel = ns
+    ns = A22.shape[-1]
+    Ev = (vc[:, None, :] == torch.arange(ns, device=vc.device)[None, :, None]
+          ).to(dtype)                         # (s, ns, nv) one-hot
+    Qv = torch.matmul(dp["Q"], Ev) if apply_ot else Ev
+    Mv = torch.matmul(A12, Qv)                # (s, ni, nv)
+    X64 = A11inv.to(dtype)
+    Z0 = torch.matmul(X64, Mv)
+    Z = Z0 + torch.matmul(X64, Mv - torch.matmul(A11, Z0))
+    W = torch.matmul(A21, Z)                  # (s, ns, nv)
+    QvT = Qv.transpose(1, 2)
+    T11v = -torch.matmul(QvT, W)
+    T22v = torch.matmul(QvT, torch.matmul(A22, Qv))
+
+    nxt = _ext(T22v.reshape(-1))[dp["nxt22_v"]] + \
+        torch.sum(_ext(T11v.reshape(-1))[dp["nxt11_v"]], dim=1)
+    nxt = _drop_rel_diag(nxt, dp["next_rows"], dp["next_cols"],
+                         dp["next_diag_entry"])
+    factors = {"A11inv": A11inv, "G": G, "A21": A21s, "blkinv": blkinv,
+               "sc": sc}
+    return factors, nxt
+
+
+def _compute_level(vals, dp, apply_ot=True, store_dtype=None, prev=None):
     """Factor one level: returns (factors dict, next-level values).
-    With `prev`, the previous factor dict of this level (warm
-    recompute), the dense inverses are Newton-Schulz-polished from
-    their previous values (dense.warm_inv) instead of re-factored."""
+
+    `apply_ot` False ('Apply Dropping' off): the Schur blocks are
+    assembled without the Householder conjugation.  With `prev`, the
+    previous factor dict of this level (warm recompute), the dense
+    inverses are Newton-Schulz-polished from their previous values
+    (dense.warm_inv) instead of re-factored.
+
+    `store_dtype` (factor upcast): the values chain (A11inv -> G -> T11
+    -> sc -> next level) runs in vals.dtype (f64), because Schur
+    cancellation amplifies rounding across levels, but the non-Vsum
+    block inverse feeds only the apply and is inverted directly in the
+    store dtype.  When the plan carries the vsum-split maps ('Schur
+    Assembly' = 'Vsum f64') the f64 chain is restricted to the
+    next-level entries instead: `_compute_level_split`."""
+    if store_dtype is not None and "vsum_col" in dp:
+        return _compute_level_split(vals, dp, apply_ot=apply_ot,
+                                    store_dtype=store_dtype, prev=prev)
     dtype = vals.dtype
     A11 = _pgather(dp, "A11_idx", vals)
-    ni = A11.shape[-1]
-    eye_i = torch.eye(ni, dtype=dtype, device=vals.device)
-    A11 = A11 + eye_i[None] * (~dp["int_mask"])[:, :, None]
-    A11inv = _inv(A11) if prev is None else _warm_inv(A11, prev["A11inv"])
+    A11 = A11 + _masked_eye(dp["int_mask"], dtype)
+    if prev is None:
+        A11inv = _inv(A11) if store_dtype is None else _inv_chain(A11)
+    elif store_dtype is None:
+        A11inv = _warm_inv(A11, prev["A11inv"])
+    else:
+        A11inv = _warm_chain(A11, prev["A11inv"])
 
     A12 = _pgather(dp, "A12_idx", vals)
     A21 = _pgather(dp, "A21_idx", vals)
@@ -165,25 +349,16 @@ def _compute_level(vals, dp, prev=None):
 
     G = torch.matmul(A11inv, A12)               # (s, ni, ns)
     T11 = -torch.matmul(A21, G)                 # (s, ns, ns)
-    Q = dp["Q"]
-    # Q symmetric: Q A Q^T == Q A Q
-    T22q = torch.matmul(torch.matmul(Q, A22), Q)
-    T11q = torch.matmul(torch.matmul(Q, T11), Q)
-
-    sc = _pgather(dp, "sc22_src", T22q.reshape(-1))
-    sc = sc + torch.sum(_pgather(dp, "sc11_gather", T11q.reshape(-1)),
-                        dim=1)
-
-    B = _pgather(dp, "blk_idx", sc)
-    mb = B.shape[-1]
-    eye_b = torch.eye(mb, dtype=dtype, device=vals.device)
-    B = B + eye_b[None] * (~dp["blk_mask"])[:, :, None]
-    # exactly-zero rows (variables whose transformed couplings all
-    # vanish) get identity rows: the block solve passes their residual
-    # through instead of producing NaNs
-    zero_rows = torch.sum(torch.abs(B), dim=-1) == 0
-    B = B + eye_b[None] * zero_rows[:, :, None]
-    blkinv = _inv(B) if prev is None else _warm_inv(B, prev["blkinv"])
+    if apply_ot:
+        Q = dp["Q"]
+        # Q symmetric: Q A Q^T == Q A Q
+        T22q = torch.matmul(torch.matmul(Q, A22), Q)
+        T11q = torch.matmul(torch.matmul(Q, T11), Q)
+    else:
+        T22q, T11q = A22, T11
+    sc = _assemble_sc(T22q, T11q, dp)
+    blkinv = _block_inverse(sc, dp, prev,
+                            dtype if store_dtype is None else store_dtype)
 
     nxt = sc[dp["next_idx"]]
     nxt = _drop_rel_diag(nxt, dp["next_rows"], dp["next_cols"],
@@ -193,12 +368,17 @@ def _compute_level(vals, dp, prev=None):
     return factors, nxt
 
 
-def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n, prev=None):
+def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n,
+                   store_dtype=None, prev=None):
     """Dense coarse factorization (reference CoarseSolver::Compute:
-    RelFullDiag drop + PutDirichlet + direct LU).  With `prev` (warm
-    recompute) an explicit inverse is polished from the previous one;
-    LU factors (above 2048 unknowns) are recomputed cold."""
+    RelFullDiag drop + PutDirichlet + direct LU).  Under factor upcast
+    the matrix is assembled and dropped in f64 and inverted in
+    `store_dtype`.  With `prev` (warm recompute) an explicit inverse is
+    polished from the previous one; LU factors (above 2048 unknowns)
+    are recomputed cold."""
     A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
+    if store_dtype is not None:
+        A = A.to(store_dtype)
     if prev is not None and "inv" in prev:
         return {"inv": _warm_inv(A, prev["inv"])}
     return _dense_factor(A)
@@ -211,29 +391,38 @@ def _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n):
     vals = _drop_rel_diag(vals, rows, cols, diag_entry)
     A = torch.zeros((n, n), dtype=dtype, device=vals.device)
     A = A.index_put((rows, cols), vals, accumulate=True)
+    return _pin_rows(A, fix_rows)
+
+
+def _pin_rows(A, fix_rows):
+    """Rows and columns `fix_rows` of A replaced by identity (Fix GID)."""
     if fix_rows.numel():
-        keep = torch.ones(n, dtype=dtype, device=vals.device)
+        keep = torch.ones(A.shape[0], dtype=A.dtype, device=A.device)
         keep[fix_rows] = 0.0
         A = A * keep[:, None] * keep[None, :]
         A[fix_rows, fix_rows] = 1.0
     return A
 
 
-def _apply_level(b, fac, dp, solve_next):
-    """One level of the block-diagonal preconditioner application
-    (reference Preconditioner::ApplyInverse +
-    SchurPreconditioner::ApplyInverse), all data movement gather-form."""
+def _eliminate_interiors(b, fac, dp):
+    """x1 = A11^{-1} b1 per subdomain and the separator residual
+    r2 = b2 - A21 x1, summed over the subdomains that touch each
+    separator node."""
     b1 = _pgather(dp, "int_pos", b)              # (s, ni)
     x1 = _bmm(fac["A11inv"], b1)
-
     y2c = _bmm(fac["A21"], x1)                   # (s, ns)
     y2 = torch.sum(_pgather(dp, "sep_from_sd", y2c.reshape(-1)), dim=1)
+    return x1, _pgather(dp, "sep_pos_in_nodes", b) - y2
 
-    b2 = _pgather(dp, "sep_pos_in_nodes", b)
-    r2 = b2 - y2
+
+def _apply_level(b, fac, dp, solve_next, apply_ot=True):
+    """One level of the preconditioner application (reference
+    Preconditioner::ApplyInverse + SchurPreconditioner::ApplyInverse),
+    all data movement gather-form."""
+    x1, r2 = _eliminate_interiors(b, fac, dp)
 
     # --- Schur preconditioner -------------------------------------------
-    t = _apply_ot(r2, dp)
+    t = _apply_ot(r2, dp, apply_ot)
 
     tb = _pgather(dp, "blk_pos", t)
     yb = _bmm(fac["blkinv"], tb)
@@ -245,7 +434,7 @@ def _apply_level(b, fac, dp, solve_next):
     y = torch.where(dp["vsum_slot"] < n_vsum,
                     _pgather(dp, "vsum_slot", x_next), y)
 
-    x2 = _apply_ot(y, dp)
+    x2 = _apply_ot(y, dp, apply_ot)
 
     # --- back substitution -------------------------------------------------
     x2sd = _pgather(dp, "sd_sep_pos", x2)
@@ -264,21 +453,21 @@ def _ext_rows(M):
     return torch.cat([M, M.new_zeros((1, M.shape[1]))])
 
 
-def _apply_ot_multi(t, dp):
+def _apply_ot_multi(t, dp, enabled=True):
     """`_apply_ot` on the columns of t (n_sep, m), gather form."""
+    if not enabled:
+        return -t
     w_vals = dp["w_vals"]
     dots = torch.sum(w_vals[:, :, None] * _ext_rows(t)[dp["w_pos"]], dim=1)
     w = _ext(w_vals.reshape(-1))[dp["ot_inv_idx"]]
     return 2.0 * w[:, None] * _ext_rows(dots)[dp["ot_row_of"]] - t
 
 
-def _compute_level_border(fac, dp, V, W, C):
-    """Border propagation through one level (reference
-    Preconditioner::ComputeBorder + SchurPreconditioner::ComputeBorder):
+def _eliminate_border(fac, dp, V, W, C):
+    """The interiors eliminated from the border of [K V; W' C]:
       Q1 = A11^{-1} V1;  SchurV = V2 - A21 Q1;
-      SchurW = W2 - (A11^{-1} A12)^T W1;  C' = C - W1^T Q1;
-    then the Householder transform of SchurV and SchurW, whose Vsum rows
-    are the next level's border.  Returns (border factors, V', W', C')."""
+      SchurW = W2 - (A11^{-1} A12)^T W1;  C' = C - W1^T Q1.
+    Returns (Q1, W1, SchurV, SchurW, C')."""
     m = V.shape[1]
     V1 = _ext_rows(V)[dp["int_pos"]]                 # (s, ni, m)
     W1 = _ext_rows(W)[dp["int_pos"]]
@@ -292,38 +481,50 @@ def _compute_level_border(fac, dp, V, W, C):
     schurV = V[sep] - gather_sep(torch.matmul(fac["A21"], Q1))
     schurW = W[sep] - gather_sep(torch.matmul(fac["G"].transpose(1, 2), W1))
     Cp = C - W1.reshape(-1, m).T @ Q1.reshape(-1, m)
-    bV = _apply_ot_multi(schurV, dp)
-    bW = _apply_ot_multi(schurW, dp)
+    return Q1, W1, schurV, schurW, Cp
+
+
+def _compute_level_border(fac, dp, V, W, C, apply_ot=True):
+    """Border propagation through one level (reference
+    Preconditioner::ComputeBorder + SchurPreconditioner::ComputeBorder):
+    `_eliminate_border`, then the Householder transform of SchurV and
+    SchurW, whose Vsum rows are the next level's border.  Returns
+    (border factors, V', W', C')."""
+    Q1, W1, schurV, schurW, Cp = _eliminate_border(fac, dp, V, W, C)
+    bV = _apply_ot_multi(schurV, dp, apply_ot)
+    bW = _apply_ot_multi(schurW, dp, apply_ot)
     bfac = {"Q1": Q1, "W1": W1, "bW": bW}
     return bfac, bV[dp["vsum_pos"]], bW[dp["vsum_pos"]], Cp
 
 
-def _coarse_factor_aug(vals, rows, cols, diag_entry, fix_rows, n, V, W, C):
+def _augment(A, V, W, C):
+    """The dense bordered matrix [A V; W' C]."""
+    return torch.cat([torch.cat([A, V], dim=1), torch.cat([W.T, C], dim=1)])
+
+
+def _coarse_factor_aug(vals, rows, cols, diag_entry, fix_rows, n, V, W, C,
+                       store_dtype=None):
     """Bordered coarse factorization: the dense factor of [A V; W' C]
-    (reference CoarseSolver::Compute + AugmentedMatrix)."""
-    A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
-    return _dense_factor(torch.cat([torch.cat([A, V], dim=1),
-                                    torch.cat([W.T, C], dim=1)]))
+    (reference CoarseSolver::Compute + AugmentedMatrix).  `store_dtype`
+    as in `_coarse_factor`."""
+    Aug = _augment(_coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n),
+                   V, W, C)
+    return _dense_factor(Aug if store_dtype is None else Aug.to(store_dtype))
 
 
-def _apply_level_bordered(b, T, fac, dp, solve_next):
+def _apply_level_bordered(b, T, fac, dp, solve_next, apply_ot=True):
     """Bordered variant of `_apply_level` (reference
     Preconditioner::ApplyInverse(B,T,X,S) + the bordered
     SchurPreconditioner::ApplyInverse); `fac["border"]` holds the
     level's border factors.  Returns (x, S)."""
     bfac = fac["border"]
-    b1 = _pgather(dp, "int_pos", b)
-    x1 = _bmm(fac["A11inv"], b1)
-
-    y2c = _bmm(fac["A21"], x1)
-    y2 = torch.sum(_pgather(dp, "sep_from_sd", y2c.reshape(-1)), dim=1)
-    r2 = _pgather(dp, "sep_pos_in_nodes", b) - y2
+    x1, r2 = _eliminate_interiors(b, fac, dp)
 
     # border rhs: q = T - W1' x1
     W1 = bfac["W1"]
     q = T - _matmul(W1.reshape(-1, W1.shape[-1]).T, x1.reshape(-1))
 
-    t = _apply_ot(r2, dp)
+    t = _apply_ot(r2, dp, apply_ot)
     yb = _bmm(fac["blkinv"], _pgather(dp, "blk_pos", t))
     y = _pgather(dp, "blk_inv_idx", yb.reshape(-1))
 
@@ -334,12 +535,208 @@ def _apply_level_bordered(b, T, fac, dp, solve_next):
     n_vsum = dp["vsum_pos"].shape[0]
     y = torch.where(dp["vsum_slot"] < n_vsum,
                     _pgather(dp, "vsum_slot", x_next), y)
-    x2 = _apply_ot(y, dp)
+    x2 = _apply_ot(y, dp, apply_ot)
 
     x1 = x1 - _bmm(fac["G"], _pgather(dp, "sd_sep_pos", x2))
     x1 = x1 - _matmul(bfac["Q1"], S)
     src = torch.cat([x1.reshape(-1), x2])
     return _pgather(dp, "node_src", src), S
+
+
+# ---------------------------------------------------------------------------
+# L == 0: direct solve of the full (untransformed) Schur complement
+# ---------------------------------------------------------------------------
+
+DIRECT_FIELDS = ("a22_idx", "a22_rows", "a22_cols", "s11_rows", "s11_cols",
+                 "s11_src", "fix_rows")
+
+
+@dataclass
+class DirectSCPlan:
+    """Level plan variant when 'Number of Levels' == 0: eliminate the
+    interiors, assemble the full Schur complement densely, solve it
+    directly (reference Preconditioner::Compute at myLevel_ >=
+    maxLevel_, HYMLS_Preconditioner.cpp:485-500)."""
+
+    a22_idx: np.ndarray      # (m,) entries of K in sep x sep
+    a22_rows: np.ndarray     # (m,) sep-local
+    a22_cols: np.ndarray
+    s11_rows: np.ndarray     # flat (sd, i, j) -> target (r, c)
+    s11_cols: np.ndarray
+    s11_src: np.ndarray
+    fix_rows: np.ndarray
+
+
+def build_direct_plan(K: sp.csr_matrix, plan: LevelPlan, sep_sorted,
+                      fix_gids) -> DirectSCPlan:
+    """The dense Schur complement's assembly maps (host): the entries of
+    K within separators x separators, and all (i, j) pairs of each
+    subdomain's separator nodes as targets of its -A21 A11^{-1} A12."""
+    n = K.shape[0]
+    n_sep = sep_sorted.size
+    is_sep = np.zeros(n, dtype=bool)
+    is_sep[sep_sorted] = True
+    # entry index in CSR order == position in data (canonical CSR)
+    csr_rows = np.repeat(np.arange(n), np.diff(K.indptr))
+    csr_cols = K.indices
+    msk = is_sep[csr_rows] & is_sep[csr_cols]
+    a22_idx = np.arange(K.nnz, dtype=np.int64)[msk]
+    a22_rows = np.searchsorted(sep_sorted, csr_rows[msk])
+    a22_cols = np.searchsorted(sep_sorted, csr_cols[msk])
+
+    ns = plan.sd_sep_pos.shape[1]
+    rows_l, cols_l, src_l = [], [], []
+    for sd in range(plan.sd_sep_pos.shape[0]):
+        locs = plan.sd_sep_pos[sd][plan.sd_sep_mask[sd]]
+        mloc = locs.size
+        if mloc == 0:
+            continue
+        il = np.repeat(np.arange(mloc), mloc)
+        jl = np.tile(np.arange(mloc), mloc)
+        rows_l.append(np.repeat(locs, mloc))
+        cols_l.append(np.tile(locs, mloc))
+        src_l.append((sd * ns + il) * ns + jl)
+
+    def cat(parts):
+        return np.concatenate(parts) if parts else np.empty(0, np.int64)
+
+    fix_local = []
+    for gid in fix_gids:
+        p = np.searchsorted(sep_sorted, gid)
+        if p < n_sep and sep_sorted[p] == gid:
+            fix_local.append(p)
+    return DirectSCPlan(
+        a22_idx=a22_idx, a22_rows=a22_rows, a22_cols=a22_cols,
+        s11_rows=cat(rows_l), s11_cols=cat(cols_l), s11_src=cat(src_l),
+        fix_rows=np.array(fix_local, dtype=np.int64))
+
+
+def _direct_sc_matrix(vals, dsc, T11, n_sep):
+    """Assemble the dense (pinned) Schur complement for L == 0."""
+    S = torch.zeros((n_sep, n_sep), dtype=vals.dtype, device=vals.device)
+    S = S.index_put((dsc["a22_rows"], dsc["a22_cols"]),
+                    vals[dsc["a22_idx"]], accumulate=True)
+    S = S.index_put((dsc["s11_rows"], dsc["s11_cols"]),
+                    T11.reshape(-1)[dsc["s11_src"]], accumulate=True)
+    return _pin_rows(S, dsc["fix_rows"])
+
+
+def _compute_direct(vals, dp, ddirect, n_sep, border_vals=None, prev=None,
+                    store_dtype=None):
+    """Factor tree of the direct-Schur mode: {"levels": [{A11inv, G,
+    A21}], "coarse": factor of the dense Schur complement}.  With
+    `border_vals` the interiors are eliminated from [K V; W' C] and the
+    coarse factor is that of the augmented Schur complement (reference
+    CoarseSolver::SetBorder + AugmentedMatrix,
+    HYMLS_CoarseSolver.cpp:200-224); "border" holds Q1 and W1.  `prev`
+    and `store_dtype` as in `_compute_level`."""
+    A11 = _pgather(dp, "A11_idx", vals)
+    A11 = A11 + _masked_eye(dp["int_mask"], vals.dtype)
+    if prev is None:
+        A11inv = _inv(A11) if store_dtype is None else _inv_chain(A11)
+    elif store_dtype is None:
+        A11inv = _warm_inv(A11, prev["levels"][0]["A11inv"])
+    else:
+        A11inv = _warm_chain(A11, prev["levels"][0]["A11inv"])
+    A12 = _pgather(dp, "A12_idx", vals)
+    A21 = _pgather(dp, "A21_idx", vals)
+    G = torch.matmul(A11inv, A12)
+    S = _direct_sc_matrix(vals, ddirect, -torch.matmul(A21, G), n_sep)
+    lev = {"A11inv": A11inv, "G": G, "A21": A21}
+    fac = {"levels": [lev]}
+    if border_vals is None:
+        Ss = S if store_dtype is None else S.to(store_dtype)
+        if prev is not None and "inv" in prev["coarse"]:
+            fac["coarse"] = {"inv": _warm_inv(Ss, prev["coarse"]["inv"])}
+        else:
+            fac["coarse"] = _dense_factor(Ss)
+        return fac
+    Q1, W1, schurV, schurW, Cs = _eliminate_border(lev, dp, *border_vals)
+    Maug = _augment(S, schurV, schurW, Cs)
+    fac["coarse"] = _dense_factor(
+        Maug if store_dtype is None else Maug.to(store_dtype))
+    fac["border"] = {"Q1": Q1, "W1": W1}
+    return fac
+
+
+def _back_substitute(x1, x2, fac, dp):
+    """x1 - G x2 on the interiors, then both parts in node order."""
+    x1 = x1 - _bmm(fac["G"], _pgather(dp, "sd_sep_pos", x2))
+    return _pgather(dp, "node_src", torch.cat([x1.reshape(-1), x2]))
+
+
+def _apply_direct(factors, dp, b):
+    """x = K^{-1} b through the dense Schur complement."""
+    fac = factors["levels"][0]
+    x1, r2 = _eliminate_interiors(b, fac, dp)
+    return _back_substitute(x1, _dense_solve(factors["coarse"], r2), fac, dp)
+
+
+def _apply_direct_bordered(factors, dp, b, t):
+    """[x; s] = [K V; W' C]^{-1} [b; t] via the augmented dense Schur
+    complement (reference CoarseSolver bordered ApplyInverse,
+    HYMLS_CoarseSolver.cpp:454-564)."""
+    fac = factors["levels"][0]
+    bb = factors["border"]
+    x1, r2 = _eliminate_interiors(b, fac, dp)
+    W1 = bb["W1"]
+    rt = t - _matmul(W1.reshape(-1, W1.shape[-1]).T, x1.reshape(-1))
+    sol = _dense_solve(factors["coarse"], torch.cat([r2, rt]))
+    n_sep = r2.shape[0]
+    x2, s = sol[:n_sep], sol[n_sep:]
+    x1 = x1 - _matmul(bb["Q1"], s)
+    return _back_substitute(x1, x2, fac, dp), s
+
+
+# ---------------------------------------------------------------------------
+# the B-grid transform
+# ---------------------------------------------------------------------------
+
+def _build_bgrid_t(grid: GridInfo) -> sp.csr_matrix:
+    """T rows: u -> (u - v)/sqrt(2), v -> (v + u)/sqrt(2); identity on
+    all other variables (reference HYMLS_Preconditioner.cpp:1082-1112)."""
+    n = grid.num_nodes
+    dof = grid.dof
+    val = np.sqrt(0.5)
+    gid = np.arange(n, dtype=np.int64)
+    var = gid % dof
+    rows = [gid]
+    cols = [gid]
+    vals = [np.where(var <= 1, val, 1.0)]
+    mu = var == 0
+    rows.append(gid[mu])
+    cols.append(gid[mu] + 1)
+    vals.append(np.full(mu.sum(), -val))
+    mv = var == 1
+    rows.append(gid[mv])
+    cols.append(gid[mv] - 1)
+    vals.append(np.full(mv.sum(), val))
+    T = sp.coo_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(n, n)).tocsr()
+    T.sort_indices()
+    return T
+
+
+class _BGridConjugation:
+    """x -> T apply(T' x) around any apply of a preconditioner built on
+    M = T' K T: T and T' as DiaOperators (three bands each), so every
+    apply costs two DIA matvecs more.  The bands are gathered once per
+    vector dtype (an f32 preconditioner inside an f64 Krylov method sees
+    f64 vectors and promotes, as the reference does)."""
+
+    def __init__(self, T: sp.csr_matrix, dtype, device):
+        self.ops = (DiaOperator(T, dtype=dtype, device=device),
+                    DiaOperator(T.T.tocsr(), dtype=dtype, device=device))
+        self._bands = {}
+
+    def __call__(self, apply, b):
+        if b.dtype not in self._bands:
+            self._bands[b.dtype] = tuple(
+                op.prepare(op.vals).to(b.dtype) for op in self.ops)
+        (Top, TopT), (bT, bTT) = self.ops, self._bands[b.dtype]
+        y = apply(TopT.matvec_prepared(bTT, b.contiguous()))
+        return Top.matvec_prepared(bT, y.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -351,43 +748,77 @@ def _unsupported(what: str, item: str):
         f"{what} is not ported to hymls_tpu_torch yet (ROADMAP {item})")
 
 
+def _canonical(K: sp.spmatrix) -> sp.csr_matrix:
+    K = K.tocsr()
+    K.sum_duplicates()
+    K.sort_indices()
+    return K
+
+
+def _cast_tree(t, src, dst):
+    """The factor tree with every tensor of dtype `src` cast to `dst`."""
+    if isinstance(t, dict):
+        return {k: _cast_tree(v, src, dst) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_cast_tree(v, src, dst) for v in t]
+    return t.to(dst) if t.dtype == src else t
+
+
 class Preconditioner:
     """Multilevel F-matrix preconditioner with the same math as the
-    reference HYMLS::Preconditioner (block-diagonal variant, one or
-    more levels; structured or generic apply)."""
+    reference HYMLS::Preconditioner: any number of levels (0: the direct
+    Schur solve), every 'Preconditioner Variant', with or without
+    dropping; structured or generic apply."""
 
     def __init__(self, K: sp.csr_matrix, params: Params,
                  testvector: Optional[np.ndarray] = None,
-                 dtype=torch.float64, *, device):
+                 dtype=torch.float64, factor_dtype=None, *, device):
         self.params = params
         self.dtype = dtype
         self.device = torch.device(device)
         prec = params.sublist("Preconditioner")
+        # Factor (assembly) precision may exceed the apply precision:
+        # 'Factor Precision' = 'f64' runs the factor pipeline of an f32
+        # preconditioner in f64 and casts the factors to f32 (the
+        # reference's analogue of doing all setup in double); on an f64
+        # preconditioner it is 'Same'.
+        if factor_dtype is None and dtype == torch.float32 and \
+                prec.get("Factor Precision", "Same") == "f64":
+            factor_dtype = torch.float64
+        self.factor_dtype = dtype if factor_dtype is None else factor_dtype
+        self._upcast = self.factor_dtype != self.dtype
+        self.grid: GridInfo = grid_from_params(params)
+
+        # B-grid transform: M = T' K T with T the 45-degree rotation of
+        # each (u, v) velocity pair (reference Preconditioner::
+        # TransformMatrix, HYMLS_Preconditioner.cpp:1072-1156); the
+        # preconditioner is built on M and every apply is conjugated.
+        self._bgrid_T = None
+        self._bgrid = None
+        if prec.get("B-Grid Transform", False):
+            self._bgrid_T = _build_bgrid_t(self.grid)
+            self._bgrid = _BGridConjugation(self._bgrid_T, dtype,
+                                            self.device)
+            K = self._transform_bgrid(K)
+        self.K = _canonical(K.copy())
+        n = self.K.shape[0]
+        if n != self.grid.num_nodes:
+            raise ValueError(
+                f"matrix size {n} != grid size {self.grid.num_nodes}")
+
         self.max_level = prec.get("Number of Levels", 1)
         self.variant = prec.get("Preconditioner Variant", "Block Diagonal")
         self.partitioner_type = prec.get("Partitioner", "Cartesian")
         self.apply_dropping = prec.get("Apply Dropping", True)
-        if self.max_level < 1:
-            raise _unsupported("'Number of Levels' = 0 (direct Schur "
-                               "solve)", "M9")
-        if self.variant != "Block Diagonal":
-            raise _unsupported(f"'Preconditioner Variant' = "
-                               f"{self.variant!r}", "M9")
-        if not self.apply_dropping:
-            raise _unsupported("'Apply Dropping' = false", "M9")
-        if prec.get("B-Grid Transform", False):
-            raise _unsupported("'B-Grid Transform'", "M9")
-        if prec.get("Factor Precision", "Same") == "f64":
-            raise _unsupported("'Factor Precision' = 'f64'", "M9")
-        self.grid: GridInfo = grid_from_params(params)
-        K = K.tocsr().copy()
-        K.sum_duplicates()
-        K.sort_indices()
-        self.K = K
-        n = K.shape[0]
-        if n != self.grid.num_nodes:
-            raise ValueError(
-                f"matrix size {n} != grid size {self.grid.num_nodes}")
+        # 'Schur Assembly' under factor upcast: 'Vsum f64' restricts the
+        # f64 chain to the next-level (Vsum) entries
+        # (_compute_level_split), on the levels 'Vsum f64 Levels' names
+        # (comma-separated, or 'all').  'Full f64' is the default.
+        self._split_assembly = self._upcast and prec.get(
+            "Schur Assembly", "Full f64") == "Vsum f64"
+        lv = str(prec.get("Vsum f64 Levels", "all"))
+        self._split_levels = None if lv.strip().lower() == "all" else {
+            int(t) for t in lv.split(",") if t.strip()}
 
         fix_gids: List[int] = []
         pos = 1
@@ -403,6 +834,13 @@ class Preconditioner:
         self._border = None
         self.initialize()
 
+    def _transform_bgrid(self, K: sp.csr_matrix) -> sp.csr_matrix:
+        T = self._bgrid_T
+        M = _canonical(T.T @ K.tocsr() @ T)
+        # zero (keep the pattern static) instead of removing tiny entries
+        M.data[np.abs(M.data) <= SMALL_ENTRY] = 0.0
+        return M
+
     # -- symbolic setup ----------------------------------------------------
     def initialize(self):
         """Partition every level and build the static plans (host)."""
@@ -415,7 +853,21 @@ class Preconditioner:
 
         self.plans: List[LevelPlan] = []
         self.hierarchies = []
+        self.coarse_plan: Optional[CoarsePlan] = None
+        self.direct_plan: Optional[DirectSCPlan] = None
         self._level_parts: List[PartitionParams] = []
+        if self.max_level == 0:
+            # the level-plan machinery for the elimination part, the
+            # dense assembly maps for the rest
+            cart = self._make_partitioner(part)
+            sds = [cart.get_groups(sd) for sd in cart.valid_subdomain_ids()]
+            hier = build_hierarchy(sds, active=None)
+            plan, _ = build_level_plan(0, hier, pattern, nodes, tv)
+            self.plans.append(plan)
+            self.hierarchies.append(hier)
+            self.direct_plan = build_direct_plan(
+                self.K, plan, np.unique(hier.all_separator_nodes()),
+                self.fix_gids)
         for lev in range(self.max_level):
             if lev > 0:
                 # re-resolve per-level parameters and keep the
@@ -436,13 +888,40 @@ class Preconditioner:
             self.hierarchies.append(hier)
             nodes = plan.next_nodes
             pattern = plan.next_pattern
-        self.coarse_plan: CoarsePlan = build_coarse_plan(pattern, nodes,
-                                                         self.fix_gids)
-        self._dplans = [_device_level(p, self.dtype, self.device)
-                        for p in self.plans]
-        self._dcoarse = _device_coarse(self.coarse_plan, self.device)
+        if self.max_level > 0:
+            self.coarse_plan = build_coarse_plan(pattern, nodes,
+                                                 self.fix_gids)
+        self._build_device_plans()
         self._init_structured()
         return self
+
+    def _build_device_plans(self):
+        """The plans as tensors: `_dplans` for the factorization (float
+        fields in the factor dtype), `_aplans_gen`, the subset the
+        generic apply reads (float fields in the apply dtype), and
+        `_extra_plan`, the coarse plan or at L = 0 the direct plan."""
+        self._dplans = [
+            _device_level(p, self.factor_dtype, self.device,
+                          split_maps=self._split_assembly and
+                          (self._split_levels is None or
+                           lev in self._split_levels))
+            for lev, p in enumerate(self.plans)]
+        self._aplans_gen = []
+        for d in self._dplans:
+            a = {k: d[k] for k in APPLY_FIELDS}
+            a["w_vals"] = a["w_vals"].to(self.dtype)
+            self._aplans_gen.append(a)
+        self._dcoarse = self._ddirect = None
+        if self.coarse_plan is not None:
+            self._dcoarse = _device_coarse(self.coarse_plan, self.device)
+        if self.direct_plan is not None:
+            self._ddirect = {
+                f: torch.as_tensor(np.asarray(getattr(self.direct_plan, f),
+                                              dtype=np.int64),
+                                   device=self.device)
+                for f in DIRECT_FIELDS}
+        self._extra_plan = self._ddirect if self.max_level == 0 \
+            else self._dcoarse
 
     def _init_structured(self):
         """Build the gather-free structured apply (core/structured.py),
@@ -453,10 +932,14 @@ class Preconditioner:
         detection fails or the repacked factor tensors would exceed the
         reference's element budget, 5e7 on the CPU and 3e7 elsewhere
         (the reference's TPU number; an H100 budget is not measured
-        yet).  A fallback leaves its reason in `_structured_reason`."""
+        yet).  A fallback leaves its reason in `_structured_reason`.
+        The direct-Schur mode has no levels to structure."""
         self._structured = None
         self._sfactors = None
         self._structured_reason = None
+        if self.max_level == 0:
+            self._structured_reason = "direct-SC mode"
+            return
         mode = self.params.sublist("Preconditioner").get(
             "Structured Apply", "Auto")
         if mode is False:
@@ -480,12 +963,6 @@ class Preconditioner:
         return CartesianPartitioner(self.grid, part)
 
     @property
-    def _aplans_gen(self):
-        """The plan tensors the generic apply reads (a pruned view, no
-        copies)."""
-        return [{k: d[k] for k in APPLY_FIELDS} for d in self._dplans]
-
-    @property
     def _structured_active(self) -> bool:
         """Whether `apply_fn` runs the structured program.  Bordered
         applies keep the generic plans, as in the reference."""
@@ -500,11 +977,13 @@ class Preconditioner:
         return self._aplans_gen
 
     # -- numerics (plain functions of their tensor arguments) ---------------
-    def compute_fn(self, vals, dplans, dcoarse, border_vals=None,
-                   prev=None):
+    def compute_fn(self, vals, dplans, extra, border_vals=None, prev=None):
         """Factor tree {"levels": [{A11inv, G, A21, blkinv, sc}, ...],
         "coarse": {"inv"} or {"lu", "piv"}} of the value array `vals`,
-        computed in this preconditioner's dtype.
+        assembled in the factor dtype and returned in this
+        preconditioner's dtype.  `extra` is `_extra_plan`: the coarse
+        plan, or at L = 0 the direct plan (the levels then hold A11inv,
+        G and A21 only, see `_compute_direct`).
 
         `border_vals` (V, W, C): the bordered factorization; each level
         gains its border factors under "border" and the coarse factor
@@ -512,53 +991,86 @@ class Preconditioner:
         same pattern: the warm recompute (the reference's
         `recompute_fn`), every dense inverse polished from its previous
         value with a residual-gated cold fallback (dense.warm_inv)."""
-        v = vals.to(self.dtype)
+        fdt = self.factor_dtype
+        store = self.dtype if self._upcast else None
+        v = vals.to(fdt)
+        if border_vals is not None:
+            border_vals = tuple(a.to(fdt) for a in border_vals)
+        if self.max_level == 0:
+            fac = _compute_direct(v, dplans[0], extra, self.plans[0].n_sep,
+                                  border_vals, prev, store)
+            return _cast_tree(fac, fdt, self.dtype) if self._upcast else fac
+        ots = [p.apply_ot for p in self.plans]
         facs = []
         for lev in range(self.max_level):
             f, v = _compute_level(
-                v, dplans[lev], None if prev is None else prev["levels"][lev])
+                v, dplans[lev], apply_ot=ots[lev], store_dtype=store,
+                prev=None if prev is None else prev["levels"][lev])
             facs.append(f)
-        coarse_args = (v, dcoarse["rows"], dcoarse["cols"],
-                       dcoarse["diag_entry"], dcoarse["fix_rows"],
-                       self.coarse_plan.n)
+        coarse_args = (v, extra["rows"], extra["cols"], extra["diag_entry"],
+                       extra["fix_rows"], self.coarse_plan.n)
         if border_vals is None:
             coarse = _coarse_factor(
-                *coarse_args, prev=None if prev is None else prev["coarse"])
+                *coarse_args, store_dtype=store,
+                prev=None if prev is None else prev["coarse"])
         else:
-            V, W, C = (a.to(self.dtype) for a in border_vals)
+            V, W, C = border_vals
             for lev in range(self.max_level):
                 facs[lev]["border"], V, W, C = _compute_level_border(
-                    facs[lev], dplans[lev], V, W, C)
-            coarse = _coarse_factor_aug(*coarse_args, V, W, C)
-        return {"levels": facs, "coarse": coarse}
+                    facs[lev], dplans[lev], V, W, C, ots[lev])
+            coarse = _coarse_factor_aug(*coarse_args, V, W, C,
+                                        store_dtype=store)
+        fac = {"levels": facs, "coarse": coarse}
+        return _cast_tree(fac, fdt, self.dtype) if self._upcast else fac
 
     def apply_fn(self, factors, aplans, b):
         """x = M^{-1} b for the apply-side factor tree `factors` and the
         plan tree `aplans` (`apply_factors` and `_aplans`): the
-        structured program when it is active, else the generic apply."""
+        structured program when it is active, else the generic apply;
+        conjugated with T under the B-grid transform."""
         if self._structured_active:
-            return self._structured.apply(factors, b, aplans)
-        return self.apply_generic(factors, aplans, b)
+            def apply(v):
+                return self._structured.apply(factors, v, aplans)
+        else:
+            def apply(v):
+                return self._apply_levels(factors, aplans, v)
+        return apply(b) if self._bgrid is None else self._bgrid(apply, b)
 
     def apply_generic(self, factors, dplans, b):
-        """The generic gather V-cycle on a pruned generic factor tree."""
+        """The generic gather V-cycle on a pruned generic factor tree
+        (conjugated with T under the B-grid transform)."""
+        def apply(v):
+            return self._apply_levels(factors, dplans, v)
+        return apply(b) if self._bgrid is None else self._bgrid(apply, b)
+
+    def _apply_levels(self, factors, dplans, b):
+        if self.max_level == 0:
+            return _apply_direct(factors, dplans[0], b)
+
         def solve_at(lev, rhs):
             if lev == self.max_level:
                 return _dense_solve(factors["coarse"], rhs)
             return _apply_level(rhs, factors["levels"][lev], dplans[lev],
-                                lambda r: solve_at(lev + 1, r))
+                                lambda r: solve_at(lev + 1, r),
+                                apply_ot=self.plans[lev].apply_ot)
         return solve_at(0, b)
 
     def apply_bordered_fn(self, factors, dplans, b, T):
         """[x; s] = [M V; W' C]^{-1} [b; T] on a pruned bordered factor
-        tree and the generic plans; returns (x, s)."""
+        tree and the generic plans; returns (x, s).  As in the
+        reference, the bordered apply is not conjugated with the B-grid
+        transform."""
+        if self.max_level == 0:
+            return _apply_direct_bordered(factors, dplans[0], b, T)
+
         def solve_at(lev, rhs, Tc):
             if lev == self.max_level:
                 sol = _dense_solve(factors["coarse"], torch.cat([rhs, Tc]))
                 return sol[:rhs.shape[0]], sol[rhs.shape[0]:]
             return _apply_level_bordered(
                 rhs, Tc, factors["levels"][lev], dplans[lev],
-                lambda r, t: solve_at(lev + 1, r, t))
+                lambda r, t: solve_at(lev + 1, r, t),
+                apply_ot=self.plans[lev].apply_ot)
         return solve_at(0, b, T)
 
     # -- public API ----------------------------------------------------------
@@ -580,15 +1092,15 @@ class Preconditioner:
 
     def _factorize(self, K, prev):
         if K is not None:
-            K = K.tocsr()
-            K.sum_duplicates()
-            K.sort_indices()
+            if self._bgrid_T is not None:
+                K = self._transform_bgrid(K)
+            K = _canonical(K)
             if K.nnz != self.K.nnz:
                 raise ValueError("matrix pattern changed")
             self.K = K
-        vals = torch.as_tensor(self.K.data, dtype=self.dtype,
+        vals = torch.as_tensor(self.K.data, dtype=self.factor_dtype,
                                device=self.device)
-        self._factors = self.compute_fn(vals, self._dplans, self._dcoarse,
+        self._factors = self.compute_fn(vals, self._dplans, self._extra_plan,
                                         self._border, prev)
         self._sfactors = (self.apply_factors_from(self._factors)
                           if self._structured_active else None)
@@ -613,7 +1125,7 @@ class Preconditioner:
             W = W[:, None]
         m = V.shape[1]
         C = np.zeros((m, m)) if C is None else np.asarray(C)
-        self._border = tuple(torch.as_tensor(a, dtype=self.dtype,
+        self._border = tuple(torch.as_tensor(a, dtype=self.factor_dtype,
                                              device=self.device)
                              for a in (V, W, C))
         return self
@@ -631,9 +1143,12 @@ class Preconditioner:
         if any) per level and the coarse factor; the assembled Schur
         values are dropped."""
         keep = ("A11inv", "G", "A21", "blkinv", "border")
-        return {"levels": [{k: f[k] for k in keep if k in f}
-                           for f in factors["levels"]],
-                "coarse": factors["coarse"]}
+        out = {"levels": [{k: f[k] for k in keep if k in f}
+                          for f in factors["levels"]],
+               "coarse": factors["coarse"]}
+        if "border" in factors:        # the direct-Schur mode's
+            out["border"] = factors["border"]
+        return out
 
     @property
     def apply_factors(self):

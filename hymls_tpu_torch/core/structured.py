@@ -662,6 +662,11 @@ def _build_impl(precond, max_elements=None):
         raise _Fallback("direct-SC mode")
     if precond.variant == "Domain Decomposition":
         raise _Fallback("Domain Decomposition variant")
+    if precond.variant == "Do Nothing" and precond.apply_dropping:
+        # the plans then hold no block at all, which the block templates
+        # below do not expect (the reference's detection fails on them
+        # with an IndexError on Cartesian levels)
+        raise _Fallback("Do Nothing variant")
     if not precond.apply_dropping:
         raise _Fallback("Apply Dropping == false")
     parts = getattr(precond, "_level_parts", None)

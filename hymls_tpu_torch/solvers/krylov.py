@@ -3,10 +3,11 @@
 Torch counterpart of hymls_tpu/solvers/krylov.py, with the same
 formulation so that f64 iteration counts match:
 
-  * GMRES: no-restart Arnoldi with classical Gram-Schmidt with
+  * GMRES: Arnoldi with classical Gram-Schmidt with
     reorthogonalization (CGS2), and the Givens rotations kept as the
     dense accumulated product Q = G_{k-1}...G_0, applied to each new
-    Hessenberg column as one matvec.
+    Hessenberg column as one matvec; full, or restarted every
+    `restart` iterations (Belos 'Num Blocks').
   * CG: standard preconditioned conjugate gradients.
 
 Convergence is measured as in Belos: the implicit residual norm scaled
@@ -39,16 +40,27 @@ def _as_dtype(v: float, dtype) -> float:
 def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
           prec: Optional[Callable] = None, *, tol: float = 1e-8,
           maxiter: int = 100, left: bool = False,
-          scale_with_rhs: bool = False) -> KrylovResult:
-    """Preconditioned full (unrestarted) GMRES.
+          scale_with_rhs: bool = False, restart: Optional[int] = None,
+          _scale=None) -> KrylovResult:
+    """Preconditioned GMRES.
 
     op/prec: closures x -> A x and x -> M^{-1} x.
     left: left preconditioning (residual measured in preconditioned
-    norm, like Belos); otherwise right preconditioning."""
+    norm, like Belos); otherwise right preconditioning.
+    restart: Krylov basis size (Belos 'Num Blocks'); None or
+    >= maxiter runs full GMRES.  With a restart, cycles of `restart`
+    iterations run until convergence or until `maxiter` iterations
+    have been spent (the cycle under way runs to its end).
+    _scale: a restart cycle's convergence scale, that of the whole
+    solve."""
     if torch.is_complex(b):
         raise NotImplementedError(
             "complex GMRES is not ported to hymls_tpu_torch yet "
             "(ROADMAP M10)")
+    if restart is not None and restart < maxiter:
+        return _gmres_restarted(op, b, x0, prec, tol=tol, maxiter=maxiter,
+                                left=left, scale_with_rhs=scale_with_rhs,
+                                restart=restart)
     n = b.shape[0]
     dtype = b.dtype
     m = maxiter
@@ -64,7 +76,11 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     if left:
         r0 = prec(r0)
     beta = torch.linalg.norm(r0)
-    if scale_with_rhs:
+    if _scale is not None:
+        # restart cycles measure convergence against the scale of the
+        # whole solve, not their own cycle-initial residual
+        scale = _scale
+    elif scale_with_rhs:
         scale = torch.linalg.norm(prec(b) if left else b)
     else:
         scale = beta
@@ -132,6 +148,32 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
         x = x0 + (dx if left else prec(dx))
     else:
         x = x0.clone()
+    return KrylovResult(x=x, iters=k, relres=res, converged=done)
+
+
+def _gmres_restarted(op, b, x0, prec, *, tol, maxiter, left,
+                     scale_with_rhs, restart) -> KrylovResult:
+    """Restart loop around fixed-basis GMRES cycles, on the host.  The
+    convergence scale is fixed once for the whole solve (Belos scales
+    by the solve's initial residual or right-hand side, never by a
+    cycle's restart residual: otherwise every cycle would need the full
+    relative reduction on its own)."""
+    r0 = b - op(x0)
+    if left and prec is not None:
+        r0 = prec(r0)
+    if scale_with_rhs:
+        scale0 = torch.linalg.norm(
+            prec(b) if (left and prec is not None) else b)
+    else:
+        scale0 = torch.linalg.norm(r0)
+    scale0 = torch.where(scale0 > 0, scale0, torch.ones_like(scale0))
+
+    x, k, res, done = x0, 0, float("inf"), False
+    while not done and k < maxiter:
+        inner = gmres(op, b, x, prec, tol=tol, maxiter=restart, left=left,
+                      scale_with_rhs=scale_with_rhs, _scale=scale0)
+        x, k, res, done = inner.x, k + inner.iters, inner.relres, \
+            inner.converged
     return KrylovResult(x=x, iters=k, relres=res, converged=done)
 
 

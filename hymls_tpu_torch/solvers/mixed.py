@@ -54,8 +54,15 @@ class IterativeRefinementSolver:
             "Convergence Tolerance"] = self.inner_tol
         inner_params.sublist("Solver").sublist("Iterative Solver")[
             "Maximum Iterations"] = self.inner_maxiter
-        self.precond = Preconditioner(K, inner_params, testvector=testvector,
-                                      dtype=torch.float32, device=device)
+        # factor assembly defaults to 'Same' (the all-f32 chain);
+        # 'Factor Precision' = 'f64' opts into f64 assembly with f32
+        # factors, for matrices that cancel beyond f32 range
+        fprec = params.sublist("Preconditioner").get("Factor Precision",
+                                                     "Same")
+        self.precond = Preconditioner(
+            K, inner_params, testvector=testvector, dtype=torch.float32,
+            factor_dtype=torch.float64 if fprec == "f64" else torch.float32,
+            device=device)
         self.solver = Solver(K, self.precond, inner_params,
                              dtype=torch.float32, device=device)
         self.op64 = make_operator(K, dtype=torch.float64, device=device)
@@ -125,7 +132,7 @@ class IterativeRefinementSolver:
         `newton_step_fn` program)."""
         P = self.precond
         factors = P.apply_factors_from(P.compute_fn(vals64, P._dplans,
-                                                    P._dcoarse))
+                                                    P._extra_plan))
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
         res = self.refine(vals64, vals32, factors, P._aplans, b)
         self._last_result = res
@@ -140,7 +147,7 @@ class IterativeRefinementSolver:
         (KrylovResult, factors) with the unpruned factor tree for the
         next step."""
         P = self.precond
-        factors = P.compute_fn(vals64, P._dplans, P._dcoarse, prev=prev)
+        factors = P.compute_fn(vals64, P._dplans, P._extra_plan, prev=prev)
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
         res = self.refine(vals64, vals32, P.apply_factors_from(factors),
                           P._aplans, b)

@@ -3,8 +3,9 @@
 Torch counterpart of the single-device path of
 hymls_tpu/solvers/solver.py (reference src/HYMLS_Solver.cpp:34-48,
 HYMLS_BaseSolver.cpp): the 'Solver' sublist selects the Krylov method
-(GMRES or CG), the preconditioning side and the start vector; a
-border turns the solve into GMRES on the bordered system.
+(GMRES or CG), the preconditioning side, the start vector and the
+GMRES restart length ('Num Blocks'); a border turns the solve into
+GMRES on the bordered system.
 """
 from __future__ import annotations
 
@@ -39,17 +40,15 @@ class Solver:
         self.method = slist.get("Krylov Method", "GMRES")
         if self.method not in ("GMRES", "CG"):
             raise _unsupported(f"'Krylov Method' = {self.method!r}", "M10")
+        # 'Random', 'Previous', or zero for any other value, as in the
+        # reference
         self.start_vec = slist.get("Initial Vector", "Zero")
-        if self.start_vec not in ("Zero", "Random", "Previous"):
-            raise _unsupported(f"'Initial Vector' = {self.start_vec!r}",
-                               "M5")
         self.lor = slist.get("Left or Right Preconditioning", "Left")
         it = slist.sublist("Iterative Solver")
         self.maxiter = it.get("Maximum Iterations", 100)
         self.tol = it.get("Convergence Tolerance", 1e-6)
-        restart = it.get("Num Blocks", None)
-        if restart is not None and restart < self.maxiter:
-            raise _unsupported("restarted GMRES ('Num Blocks')", "M5")
+        # Belos 'Num Blocks': GMRES basis size (restart length)
+        self.restart = it.get("Num Blocks", None)
         if slist.get("Distributed Apply", False):
             raise _unsupported("'Distributed Apply'", "M12")
         if slist.get("Deflated Subspace Dimension", 0) > 0:
@@ -120,7 +119,8 @@ class Solver:
             else:
                 res = krylov.gmres(op, b, x0, prec, tol=self.tol,
                                    maxiter=self.maxiter,
-                                   left=self.lor == "Left")
+                                   left=self.lor == "Left",
+                                   restart=self.restart)
             x = res.x
             self._border_coeffs = None
         self._last_result = res
@@ -149,7 +149,7 @@ class Solver:
         return krylov.gmres(op, torch.cat([b, t]),
                             torch.cat([x0, b.new_zeros(m)]), prec,
                             tol=self.tol, maxiter=self.maxiter,
-                            left=self.lor == "Left")
+                            left=self.lor == "Left", restart=self.restart)
 
     @property
     def num_iter(self) -> int:

@@ -90,3 +90,38 @@ def test_dense_solve_promotes_f32_factor():
     ft = tdense.dense_factor(torch.as_tensor(A, dtype=torch.float32))
     y = tdense.dense_solve(ft, torch.as_tensor(rng.standard_normal(30)))
     assert y.dtype == torch.float64
+
+
+def test_inv_chain_hybrid_accuracy():
+    """tests/test_dense.py::test_inv_chain_hybrid_accuracy on the port:
+    `inv_chain(force_hybrid=True)` (f32 seed, one Newton step with the
+    residual in f64 and the correction in f32) reaches the ~1e-9 class
+    inverse residual on subdomain-interior-like conditioning, a hundred
+    times below the f32 seed's, and agrees with the reference's hybrid
+    inverse to 1e-7 relative (both carry an f32 seed's rounding,
+    squared)."""
+    rng = np.random.default_rng(7)
+    A = _spd_with_cond(47, 1e4, rng, batch=8)
+    X = tdense.inv_chain(torch.as_tensor(A), force_hybrid=True)
+    assert X.dtype == torch.float64
+    X = X.numpy()
+    r = max(_resid(A[i], X[i]) for i in range(8))
+    assert r < 3e-8, r
+    X32 = torch.linalg.inv(torch.as_tensor(A, dtype=torch.float32))
+    r32 = max(_resid(A[i], X32[i].double().numpy()) for i in range(8))
+    assert r < r32 / 100
+    Xj = np.asarray(jdense.inv_chain(jnp.asarray(A), force_hybrid=True))
+    assert _rel(Xj, X) <= 1e-7
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_inv_chain_default_is_inv_newton(dtype):
+    """Without `force_hybrid`, and for f32 input with it, the chain
+    inverse is `inv_newton`: the branch the reference's CPU runs take."""
+    rng = np.random.default_rng(9)
+    A = torch.as_tensor(_spd_with_cond(20, 1e3, rng, batch=4), dtype=dtype)
+    assert torch.equal(tdense.inv_chain(A), tdense.inv_newton(A))
+    if dtype == torch.float32:
+        assert torch.equal(tdense.inv_chain(A, force_hybrid=True),
+                           tdense.inv_newton(A))

@@ -115,7 +115,7 @@ def test_refinement_entry_points_on_cavity32():
 
 
 @pytest.mark.parametrize("solver", [
-    {"Iterative Solver": {"Num Blocks": 10}},
+    {"Deflated Subspace Dimension": 4},
     {"Distributed Apply": True},
     {"Krylov Method": "MINRES"},
 ])

@@ -347,15 +347,23 @@ def test_structured_true_raises_when_detection_fails():
         T.Preconditioner(K, T.Params(d), device="cpu")
 
 
-def test_lower_triangular_is_m9():
-    """tests/test_structured.py's Lower Triangular Stokes case: that
-    variant is ROADMAP M9 in the port."""
+def test_lower_triangular_structured_matches_reference():
+    """tests/test_structured.py's Lower Triangular Stokes case: the
+    variant lives in the plans, and both packages run it on the
+    structured apply with the same result."""
     d = _params("Stokes-C", {"nx": 32, "ny": 32},
                 {"Number of Levels": 2,
                  "Preconditioner Variant": "Lower Triangular"}, 2)
     K = create_matrix(T.Params(d)).tocsr()
-    with pytest.raises(NotImplementedError, match="M9"):
-        T.Preconditioner(K, T.Params(d), device="cpu")
+    tv = create_testvector(T.Params(d), K)
+    Pj = H.Preconditioner(K, H.Params(d), testvector=tv).compute()
+    Pt = T.Preconditioner(K, T.Params(d), testvector=tv,
+                          device="cpu").compute()
+    assert Pj._structured_active and Pt._structured_active
+    b = np.random.default_rng(0).standard_normal(K.shape[0])
+    yj = np.asarray(Pj.apply_inverse(b))
+    yt = Pt.apply_inverse(b).numpy()
+    assert np.abs(yj - yt).max() <= 1e-10 * np.abs(yj).max()
 
 
 def test_sharded_apply_is_m12():
