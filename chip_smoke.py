@@ -16,13 +16,19 @@ raises on failure (nonzero exit, no result line):
      (the main path's, 19 bands x 12288), stokes128, cavity128,
      stokes3d32, cavity512 and cavity1024 (beyond the 50 MB L2) -- in
      f32 and f64 (relative tolerance 1e-6 / 1e-14), also with an x not
-     16-byte aligned.  Per shape and
+     16-byte aligned and with an x of stride 2 (the real part of a
+     complex tensor: the wrapper must refuse it and take its contiguous
+     copy).  Per shape and
      type: device time per launch by CUDA-graph replay of 100 launches,
      beside the bound (bytes at 3.35 TB/s), an empty launch, cuSPARSE's
      CSR SpMV on the same matrix (torch.mv on a sparse CSR tensor, timed
      here only) and, with --baseline, DIR's kernel; the call with host
      issue (CUDA events) and the host issue alone (wall clock, no
-     synchronize), for the kernel and for cuSPARSE.  The dense matvec
+     synchronize), for the kernel and for cuSPARSE.  Then, without
+     timing, the DIA operators of phases 18, 19 and 21 as make_operator
+     builds them (5 bands: the anisotropic and the Neumann Laplace at
+     128^2, Laplace 64^2, and their transposes) in f64 and f32, with an
+     aligned and an unaligned x, at the same tolerances.  The dense matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
      against torch.matmul at 2048 and 8192;
@@ -105,14 +111,42 @@ raises on failure (nonzero exit, no result line):
      at most 500 inner iterations) and within 15% of the JAX package's
      CPU count (the two packages' f32 factors differ by 6% there on the
      CPU), then the restarted f64 GMRES solve that 'Num Blocks' asks
-     for, held the same way.
+     for, held the same way;
+ 18. deflated solve: tests/test_variants.py's anisotropic Laplace at
+     128^2 (n = 16384), L = 2, GMRES to 1e-10, 8 deflated modes:
+     setup_deflation() (the subspace iteration, whose block applies are
+     run column by column, then the 8 projected solves) and one
+     solve; true relres <= 5e-9, iterations within 2 of the JAX
+     package's CPU count and no more than without deflation, the
+     subspace iteration converged (rel <= 1e-5) before its cap,
+     V'V = I to 1e-10;
+ 19. bordered + deflated: tests/test_combos.py's Neumann Laplace with
+     the constant null space as border at 128^2, L = 2, 6 modes of the
+     augmented system; relres and error <= 5e-9, iterations as in 18;
+ 20. complex solves in complex128: (A + 0.5 i I) z = b on the Laplace
+     operator at 128^2, L = 1 (error <= 1e-8, iterations within 1 of
+     the JAX package's CPU count), timed beside the real f64 solve of
+     the same A; the complex bordered solve of tests/test_combos.py at
+     128^2 (relres <= 1e-8, iterations within 1);
+ 21. eigenvalues: (a) JDQR on configs/laplace1_eigs.xml's problem at
+     its refined 64^2: 10 converged in <= 70 outer iterations (within 5
+     of the JAX package's CPU count), values within 1e-8 of a host
+     shift-invert ARPACK run, residuals <= 1e-7; (b) JDQR on the cavity
+     Jacobian at Re 1000, at 16^2 and at 64^2: 4 values, among them a
+     conjugate pair, so the complex correction solver runs; values
+     within 1e-6 (64^2: 1e-5) of the largest |lambda| from those the
+     JAX package locks on the CPU, residuals <= 1e-5; (c)
+     shift_invert_eigs around the port's Solver on Laplace 64^2: 10
+     values within 1e-8 of ARPACK's, inner solves within 2 of the JAX
+     package's CPU count; the DIA kernel must have run.
 
-Each of the paths 4-6 and 8-17 (phase 8 once per apply, phase 10's
-Newton solve and trace apart) is driven with the kernels' launch counts
-set to 0 just before it and read just after; each new path must have
-launched the DIA kernel.  Against the earlier version of this script,
-phase 7 takes 2 rounds (medians of 4) and phase 8's times 3 rounds
-(medians of 6) so that the new phases fit.  The line before the last is
+Each of the paths 4-6 and 8-21 (phase 8 once per apply, phase 10's
+Newton solve and trace apart; in phases 20-21 the solves on ELL
+operators launch no DIA kernel and say so) is driven with the kernels'
+launch counts set to 0 just before it and read just after; each path
+whose operator is a DIA operator must have launched the kernel.  Phase
+7 takes 2 rounds (medians of 4) and phase 8's times 3 rounds (medians
+of 6) so that all phases fit.  The line before the last is
 the kernels' JSON record; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -170,6 +204,33 @@ ANCHOR_DIRECT = {"plain": 2, "bordered": 1}
 ANCHOR_BGRID = {True: 65, False: 46}
 ANCHOR_BGRID_NODROP16 = 2
 ANCHOR_FACTOR64 = 76
+# CPU anchors of the JAX package for phases 18-21 (tests/_torch_anchors.py
+# prints them; the port's CPU counts are the same unless noted): GMRES
+# iterations of the deflated projected solve and of the plain solve, on
+# the anisotropic Laplace and on the bordered Neumann Laplace at 128^2;
+# complex GMRES iterations of (A + 0.5 i I) z = b and of the complex
+# bordered solve at 128^2; JDQR outer iterations on Laplace 64^2 (the
+# port takes 44 on the CPU); the inner solves of shift_invert_eigs there
+# (the port: 55)
+DEFL_NX = 128
+ANCHOR_DEFLATED, ANCHOR_DEFLATED_PLAIN = 65, 65
+ANCHOR_BORDERED_DEFLATED, ANCHOR_BORDERED_DEFLATED_PLAIN = 37, 37
+ANCHOR_COMPLEX = 92
+ANCHOR_COMPLEX_BORDERED = 91
+ANCHOR_JDQR = 46
+ANCHOR_SHIFT_INVERT_SOLVES = 56
+# JDQR on the cavity Jacobian at Re 1000, 4 values nearest 0: per grid
+# size the values the JAX package locks, its outer iterations, and the
+# tolerance on the values relative to the largest |lambda| of the four.
+# The first value is the pressure null mode, rounding noise of order
+# 1e-12: at 64^2 that is 5e-7 of the largest, hence 1e-5 there.
+ANCHOR_PAIR = {
+    16: ((-6.8414981018e-13, -1.2845503440e-05,
+          -1.3933719667e-05 + 3.8031776078e-05j,
+          -1.3933719667e-05 - 3.8031776078e-05j), 28, 1e-6),
+    64: ((-1.3151893996e-12, -7.5974113497e-07,
+          -7.7383087053e-07 + 2.3665094275e-06j,
+          -7.7383087053e-07 - 2.3665094275e-06j), 20, 1e-5)}
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
@@ -273,10 +334,83 @@ def build_baseline(baseline_dir):
     return start_build(src, so), so
 
 
+def hold_dia(bands, x, offs, what):
+    """(max abs err, the same relative to max|y|) of the DIA kernel on
+    the contiguous copy of `x` against its plain version; raises beyond
+    TOL of the type."""
+    from hymls_tpu_torch.ops.dia_spmv import (dia_matvec_packed,
+                                              dia_matvec_reference)
+    y = dia_matvec_packed(bands, x.contiguous(), offs)
+    y_ref = dia_matvec_reference(bands, x, offs.offsets)
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    rel = err / max(float(y_ref.abs().max()), 1e-300)
+    if not (rel <= TOL[x.dtype]) or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"dia_spmv {what} disagrees with its plain "
+                           f"version: rel err {rel:.3e}")
+    return err, rel
+
+
+def solver_family_matrices():
+    """The matrices whose DIA operators phases 18, 19 and 21 launch the
+    kernel on: the anisotropic and the Neumann Laplace at 128^2 and
+    Laplace 64^2, each with its transpose (setup_deflation's second
+    operator)."""
+    from hymls_tpu_torch.stencils import laplace2d, laplace2d_neumann
+    from hymls_tpu_torch.stencils.generators import _cross2d
+    nx, eps = DEFL_NX, 0.01
+    mats = {
+        f"aniso{nx}": -_cross2d(nx, nx, 2 + 2 * eps, -1.0, -1.0, -eps, -eps),
+        f"neumann{nx}": laplace2d_neumann(nx, nx),
+        "laplace64": laplace2d(64, 64)}
+    out = {}
+    for name, K in mats.items():
+        out[name] = K.tocsr()
+        out[name + "^T"] = K.T.tocsr()
+    return out
+
+
+def check_dia_solver_shapes(device):
+    """Phase 3: the DIA kernel against its plain version on the
+    operators of the solver family's paths, built by `make_operator` as
+    Solver builds them, in f64 (the paths' type) and f32, with an
+    aligned and an unaligned x.  No timing.  Returns the largest
+    (abs, rel) error."""
+    from hymls_tpu_torch.ops.spmv import DiaOperator, make_operator
+
+    rng = np.random.default_rng(13)
+    worst = (0.0, 0.0)
+    for name, K in solver_family_matrices().items():
+        op = make_operator(K, dtype=torch.float64, device=device)
+        if not isinstance(op, DiaOperator):
+            raise RuntimeError(f"{name}: make_operator gave "
+                               f"{type(op).__name__}, not a DIA operator")
+        b64, offs = op.prepare(op.vals), op.packed
+        n = K.shape[0]
+        xs = rng.standard_normal(n + 1)
+        rels = {}
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            bands = b64.to(dtype)
+            buf = torch.as_tensor(xs, dtype=dtype, device=device)
+            errs = [hold_dia(bands, xv, offs, f"{tag} {name} ({path} x)")
+                    for path, xv in (("aligned", buf[:n].clone()),
+                                     ("offset", buf[1:]))]
+            rels[tag] = max(e[1] for e in errs)
+            worst = (max(worst[0], *(e[0] for e in errs)),
+                     max(worst[1], rels[tag]))
+        log(f"dia_spmv {name}: n={n} k={offs.k} max|off|="
+            f"{max(abs(o) for o in offs.offsets)}: rel err f64 "
+            f"{rels['f64']:.2e} (tol {TOL[torch.float64]:g}), f32 "
+            f"{rels['f32']:.2e} (tol {TOL[torch.float32]:g}), aligned and "
+            f"offset x")
+    return worst
+
+
 def check_dia_kernel(device, baseline=None):
     """Phase 3: the DIA kernel against its plain version at every shape
-    of the sweep, in f32 and f64, with x at the start of its buffer and
-    one element into it (not 16-byte aligned); per shape and type
+    of the sweep, in f32 and f64, with x at the start of its buffer, one
+    element into it (not 16-byte aligned) and as a view of stride 2
+    (refused, then taken as a contiguous copy); per shape and type
     the device time per launch by CUDA-graph replay of the kernel, of
     cuSPARSE's CSR SpMV (torch.mv on a sparse CSR tensor of the same
     matrix) and, given `baseline`, of the earlier kernel, beside the
@@ -313,19 +447,21 @@ def check_dia_kernel(device, baseline=None):
             A = torch.sparse_csr_tensor(
                 crow, col, torch.as_tensor(K.data, dtype=dtype,
                                            device=device), (n, n))
-            errs = {}
-            for path, xv in (("aligned", x), ("offset", x_odd)):
-                y = dia_matvec_packed(bands, xv, offs)
-                y_ref = dia_matvec_reference(bands, xv, offs.offsets)
-                torch.cuda.synchronize()
-                err = float((y - y_ref).abs().max())
-                rel = err / max(float(y_ref.abs().max()), 1e-300)
-                if not (rel <= TOL[dtype]) or \
-                        not bool(torch.isfinite(y).all()):
-                    raise RuntimeError(
-                        f"dia_spmv {tag} {name} ({path} x) disagrees "
-                        f"with its plain version: rel err {rel:.3e}")
-                errs[path] = (err, rel)
+            # the real part of a complex tensor: a view with stride 2,
+            # as the complex solves hand it on.  The wrapper must refuse
+            # it, and take its contiguous copy.
+            x_strided = torch.complex(x, x.flip(0)).real
+            try:
+                dia_matvec_packed(bands, x_strided, offs)
+            except ValueError:
+                pass
+            else:
+                raise RuntimeError(f"dia_spmv {tag} {name}: the wrapper "
+                                   f"took an x of stride 2")
+            errs = {path: hold_dia(bands, xv, offs,
+                                   f"{tag} {name} ({path} x)")
+                    for path, xv in (("aligned", x), ("offset", x_odd),
+                                     ("strided", x_strided))}
 
             def kernel():
                 return dia_matvec_packed(bands, x, offs)
@@ -380,7 +516,9 @@ def check_dia_kernel(device, baseline=None):
                     if baseline is not None else "")
             log(f"dia_spmv {tag} {name}: rel err "
                 f"{errs['aligned'][1]:.2e}, offset x "
-                f"{errs['offset'][1]:.2e} (tol {TOL[dtype]:g}); device "
+                f"{errs['offset'][1]:.2e}, strided x (refused, then its "
+                f"contiguous copy) {errs['strided'][1]:.2e} (tol "
+                f"{TOL[dtype]:g}); device "
                 f"us/launch: kernel {r['device_us']:.3f}{base}, cuSPARSE "
                 f"{r['library_us']:.3f} (rel diff {diff['library']:.1e}), "
                 f"empty launch {r['floor_us']:.3f}; bound "
@@ -390,7 +528,7 @@ def check_dia_kernel(device, baseline=None):
                 f"{r['host_issue_us']:.2f} / "
                 f"{r['library_host_issue_us']:.2f} us")
             rec[tag] = r
-            del A, bands, x, x_odd, buf
+            del A, bands, x, x_odd, x_strided, buf
         sweep[name] = rec
         del op, b64, crow, col, K
         torch.cuda.empty_cache()
@@ -1311,6 +1449,359 @@ def drive_stokes32cube(device):
     return out
 
 
+def laplace_params(nx, levels, solver=None, drv=None, maxiter=300,
+                   tol=1e-10):
+    """tests/test_variants.py:_params and tests/test_combos.py:
+    _neumann_setup: Laplace nx^2, separator length 4, GMRES from a zero
+    start vector; `solver` adds to the 'Solver' list, `drv` is the
+    'Driver' list."""
+    from hymls_tpu_torch import Params
+    return Params({
+        "Problem": {"Equations": "Laplace", "Dimension": 2, "nx": nx,
+                    "ny": nx},
+        "Driver": dict(drv or {}),
+        "Solver": {"Krylov Method": "GMRES", "Initial Vector": "Zero",
+                   "Iterative Solver": {"Maximum Iterations": maxiter,
+                                        "Convergence Tolerance": tol},
+                   **(solver or {})},
+        "Preconditioner": {"Separator Length": 4,
+                           "Number of Levels": levels}})
+
+
+def drive_deflated(device, tag, K, b, params_of, anchor, anchor_plain, k,
+                   border=None, x_ex=None):
+    """Phases 18-19: the solve of K x = b without deflation, then with
+    `k` deflated modes (`params_of(k)` gives the parameters), with the
+    border `border` on both.  The launch counts are set to 0 just before
+    the deflated path (`setup_deflation` and one solve).  Checks: true
+    relres <= 5e-9 (and the error against `x_ex`, where given), the
+    projected solve's iterations within 2 of the JAX package's CPU count
+    and no more than without deflation, the subspace iteration converged
+    (rel <= 1e-5) before its 60-iteration cap, V'V = I to 1e-10.
+    Returns the numbers."""
+    import hymls_tpu_torch.solvers.deflation as defl
+    from hymls_tpu_torch import Preconditioner, Solver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.stencils import create_testvector
+
+    def make(kk):
+        params = params_of(kk)
+        P = Preconditioner(K, params, device=device,
+                           testvector=create_testvector(params, K))
+        S = Solver(K, P, params, device=device)
+        if border is not None:
+            S.set_border(border)
+        P.compute()
+        return S
+
+    S0 = make(0)
+    t_plain, (x0, r0) = wall_median(lambda: S0.apply_inverse(b), 1)
+    S = make(k)
+    reset_counts()
+    sub_s = []
+    orig = defl.compute_deflation_space_device
+
+    def timed(*args, **kwargs):
+        t, V = wall_median(lambda: orig(*args, **kwargs), 1)
+        sub_s.append(t)
+        return V
+    defl.compute_deflation_space_device = timed
+    try:
+        t_setup, _ = wall_median(S.setup_deflation, 1)
+    finally:
+        defl.compute_deflation_space_device = orig
+    setup_launches = dia_matvec.launches
+    t_solve, (x, res) = wall_median(lambda: S.apply_inverse(b), 1)
+    launches = dia_matvec.launches
+    info, V = S._defl_info, S._deflation.V
+    kp = k + 6
+    relres = true_relres(K, x, b)
+    ortho = float(np.abs(V.T @ V - np.eye(k)).max())
+    err = None if x_ex is None else float(
+        np.linalg.norm(x.cpu().numpy() - x_ex) / np.linalg.norm(x_ex))
+    log(f"{tag}: n={K.shape[0]}, k={k}; setup {t_setup:.4f} s (subspace "
+        f"iteration {sub_s[0]:.4f} s: {info['applies'] // kp} block applies"
+        f" of {kp} columns, {info['applies']} applies run one by one, "
+        f"rel {info['rel']:.2e}; the {k} projected solves "
+        f"{t_setup - sub_s[0]:.4f} s), {setup_launches} dia_spmv launches;"
+        f" max|V'V - I| {ortho:.1e}")
+    log(f"{tag} solve: {res.iters} iterations (JAX CPU {anchor}; without "
+        f"deflation {r0.iters}, JAX CPU {anchor_plain}, {t_plain:.4f} s), "
+        f"true relres {relres:.3e}"
+        f"{'' if err is None else f', error {err:.3e}'}, {t_solve:.4f} s, "
+        f"{t_solve / max(res.iters, 1) * 1e3:.3f} ms per iteration; "
+        f"dia_spmv launches {launches - setup_launches}")
+    if tuple(x.shape) != (K.shape[0],) or not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"{tag}: malformed solution")
+    if not relres <= 5e-9 or (err is not None and not err <= 5e-9):
+        raise RuntimeError(f"{tag}: relres {relres:.3e}, error {err}")
+    if abs(res.iters - anchor) > 2 or res.iters > r0.iters or \
+            abs(r0.iters - anchor_plain) > 2:
+        raise RuntimeError(f"{tag}: {res.iters} iterations deflated, "
+                           f"{r0.iters} plain; JAX CPU {anchor}, "
+                           f"{anchor_plain}")
+    if not info["rel"] <= 1e-5 or not info["applies"] < 61 * kp or \
+            not ortho <= 1e-10:
+        raise RuntimeError(f"{tag}: subspace iteration {info}, "
+                           f"max|V'V - I| {ortho:.1e}")
+    if setup_launches <= 0 or launches <= setup_launches:
+        raise RuntimeError(f"the {tag} path never launched dia_spmv")
+    return {"n": K.shape[0], "k": k, "iters": res.iters,
+            "iters_plain": r0.iters, "relres": relres, "error": err,
+            "applies": info["applies"], "block_applies":
+            info["applies"] // kp, "rel": info["rel"], "setup_s": t_setup,
+            "subspace_s": sub_s[0], "projected_solves_s":
+            t_setup - sub_s[0], "solve_s": t_solve, "plain_solve_s": t_plain,
+            "setup_launches": setup_launches,
+            "solve_launches": launches - setup_launches,
+            "launches": launches}
+
+
+def drive_deflated_aniso(device):
+    """Phase 18: tests/test_variants.py's anisotropic Laplace at
+    128^2."""
+    from hymls_tpu_torch.stencils.generators import _cross2d
+    nx, eps = DEFL_NX, 0.01
+    K = (-_cross2d(nx, nx, 2 + 2 * eps, -1.0, -1.0, -eps, -eps)).tocsr()
+    b = K @ np.random.default_rng(5).standard_normal(K.shape[0])
+    return drive_deflated(
+        device, "deflated", K, b,
+        lambda k: laplace_params(
+            nx, 2, solver={"Deflated Subspace Dimension": k}),
+        ANCHOR_DEFLATED, ANCHOR_DEFLATED_PLAIN, 8)
+
+
+def neumann_case(nx, levels, solver=None):
+    """tests/test_combos.py:_neumann_setup: (params, K, null space)."""
+    from hymls_tpu_torch.stencils import create_nullspace, laplace2d_neumann
+    params = laplace_params(nx, levels, solver=solver,
+                            drv={"Null Space Type": "Constant"})
+    K = laplace2d_neumann(nx, nx).tocsr()
+    return params, K, create_nullspace(params, K.shape[0])
+
+
+def drive_bordered_deflated(device):
+    """Phase 19: tests/test_combos.py::test_bordered_deflated at 128^2."""
+    nx = DEFL_NX
+    _, K, ns = neumann_case(nx, 2)
+    x_ex = np.random.default_rng(3).standard_normal(K.shape[0])
+    x_ex -= ns @ (ns.T @ x_ex)
+    return drive_deflated(
+        device, "bordered + deflated", K, K @ x_ex,
+        lambda k: neumann_case(
+            nx, 2, solver={"Deflated Subspace Dimension": k})[0],
+        ANCHOR_BORDERED_DEFLATED, ANCHOR_BORDERED_DEFLATED_PLAIN, 6,
+        border=ns, x_ex=x_ex)
+
+
+def crandn(rng, n):
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+def drive_complex(device):
+    """Phase 20: (A + 0.5 i I) z = b on the Laplace operator at 128^2
+    (tests/test_variants.py::test_complex_solver) beside the real f64
+    solve of the same A, and the complex bordered solve of
+    tests/test_combos.py::test_complex_bordered at 128^2."""
+    import scipy.sparse as sp
+    from hymls_tpu_torch import Preconditioner, Solver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.solvers.complex_solver import ComplexSolver
+    from hymls_tpu_torch.stencils import create_testvector, laplace2d
+
+    nx = DEFL_NX
+    A = laplace2d(nx, nx).tocsr()
+    n = A.shape[0]
+    B = sp.identity(n, format="csr") * 0.5
+    params = laplace_params(nx, 1)
+    P = Preconditioner(A, params, testvector=create_testvector(params, A),
+                       device=device).compute()
+    z_ex = crandn(np.random.default_rng(11), n)
+    b = A @ z_ex + 1j * (B @ z_ex)
+    CS = ComplexSolver(A, P, params, B=B, device=device)
+    reset_counts()
+    CS.apply_inverse(b)                      # warm-up of the libraries
+    t, (z, res) = wall_median(lambda: CS.apply_inverse(b), 1)
+    launches = dia_matvec.launches
+    err = float(np.linalg.norm(z.cpu().numpy() - z_ex)
+                / np.linalg.norm(z_ex))
+    S = Solver(A, P, params, device=device)
+    S.apply_inverse(b.real)
+    t_real, (_, r_real) = wall_median(lambda: S.apply_inverse(b.real), 1)
+    reset_counts()            # the real solves' DIA launches are not its
+    log(f"complex solve (A + 0.5 i I) z = b, n={n}, complex128: "
+        f"{res.iters} iterations (JAX CPU {ANCHOR_COMPLEX}), converged "
+        f"{res.converged}, error {err:.3e}; {t:.4f} s, "
+        f"{t / max(res.iters, 1) * 1e3:.3f} ms per iteration; the real "
+        f"f64 solve of A x = Re b: {r_real.iters} iterations, "
+        f"{t_real:.4f} s, {t_real / max(r_real.iters, 1) * 1e3:.3f} ms per"
+        f" iteration; dia_spmv launches of the complex solves {launches} "
+        f"(A and B are ELL operators)")
+    if z.dtype != torch.complex128 or tuple(z.shape) != (n,) or \
+            not res.converged or not err <= 1e-8 or \
+            abs(res.iters - ANCHOR_COMPLEX) > 1:
+        raise RuntimeError(f"complex solve: {res.iters} iterations, "
+                           f"converged {res.converged}, error {err:.3e}")
+    out = {"n": n, "iters": res.iters, "error": err, "solve_s": t,
+           "real_iters": r_real.iters, "real_solve_s": t_real}
+
+    params, K, ns = neumann_case(nx, 1)
+    B = sp.identity(n, format="csr") * 0.3
+    P = Preconditioner(K, params, testvector=create_testvector(params, K),
+                       device=device)
+    CS = ComplexSolver(K, P, params, B=B, device=device)
+    CS.set_border(ns)
+    z_ex = crandn(np.random.default_rng(5), n)
+    z_ex -= ns @ (ns.T.conj() @ z_ex)
+    b = K @ z_ex + 1j * (B @ z_ex)
+    CS.apply_inverse(b)
+    t, (z, res) = wall_median(lambda: CS.apply_inverse(b), 1)
+    z = z.cpu().numpy()
+    relres = float(np.linalg.norm(K @ z + 1j * (B @ z) - b)
+                   / np.linalg.norm(b))
+    log(f"complex bordered solve (Neumann Laplace + 0.3 i I, constant "
+        f"border): {res.iters} iterations (JAX CPU "
+        f"{ANCHOR_COMPLEX_BORDERED}), converged {res.converged}, true "
+        f"relres {relres:.3e}; {t:.4f} s, "
+        f"{t / max(res.iters, 1) * 1e3:.3f} ms per iteration")
+    if not res.converged or not relres <= 1e-8 or \
+            abs(res.iters - ANCHOR_COMPLEX_BORDERED) > 1:
+        raise RuntimeError(f"complex bordered solve: {res.iters} "
+                           f"iterations, relres {relres:.3e}")
+    out.update(bordered_iters=res.iters, bordered_relres=relres,
+               bordered_solve_s=t, launches=launches + dia_matvec.launches)
+    return out
+
+
+def eig_params(nx, equations="Laplace", **eig):
+    """tests/test_eigen.py:_setup (configs/laplace1_eigs.xml's
+    'Eigenvalues' list: 10 smallest, 1e-8, subspace 40 / 20)."""
+    params = laplace_params(nx, 1, maxiter=100, drv={"Eigenvalues": {
+        "How Many": 10, "Which": "SM", "Convergence Tolerance": 1e-8,
+        "Number of Iterations": 100, "Maximum Subspace Dimension": 40,
+        "Restart Dimension": 20, **eig}})
+    params.sublist("Problem")["Equations"] = equations
+    return params
+
+
+def eig_residuals(K, r):
+    return max(float(np.linalg.norm(K @ r.vectors[:, j] -
+                                    r.values[j] * r.vectors[:, j]))
+               for j in range(r.converged))
+
+
+def drive_eigen(device):
+    """Phase 21: (a) JDQR on configs/laplace1_eigs.xml's problem at its
+    refined size 64^2; (b) JDQR on the cavity Jacobian at Re 1000, at
+    16^2 and at cavity64's own 64^2, whose four values nearest 0 hold a
+    conjugate pair (the complex correction solver); (c)
+    shift_invert_eigs around the port's Solver on Laplace 64^2.  (a) and
+    (c) are held to a host shift-invert ARPACK run, (b) to the values
+    the JAX package locks on the CPU."""
+    import scipy.sparse.linalg as spla
+    from hymls_tpu_torch import Preconditioner, Solver
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.solvers.eigen import JDQR, shift_invert_eigs
+    from hymls_tpu_torch.stencils import laplace2d
+    from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+    out = {}
+    # (a)
+    K = laplace2d(64, 64).tocsr()
+    params = eig_params(64)
+    P = Preconditioner(K, params, device=device).compute()
+    ref = np.sort(np.abs(np.real(spla.eigs(
+        K.asfptype(), k=10, sigma=0, which="LM",
+        return_eigenvectors=False))))
+    reset_counts()
+    jd = JDQR(K, None, P, params, device=device)
+    t, r = wall_median(jd.solve, 1)
+    gap = float(np.abs(np.sort(np.abs(r.values)) - ref).max()) \
+        if r.converged == 10 else float("inf")
+    resid = eig_residuals(K, r)
+    n_corr = sum(jd.corrections.values())
+    log(f"JDQR Laplace 64^2: {r.converged} converged in {r.iterations} "
+        f"outer iterations (JAX CPU {ANCHOR_JDQR}; the config's target <= "
+        f"70), max |lambda - ARPACK's| {gap:.1e}, max residual "
+        f"{resid:.1e}; {t:.4f} s, {jd.corrections} correction solves, "
+        f"{t / max(n_corr, 1) * 1e3:.2f} ms per outer iteration with one; "
+        f"dia_spmv launches {dia_matvec.launches} (K is an ELL operator)")
+    if r.converged != 10 or r.iterations > 70 or not gap <= 1e-8 or \
+            not resid <= 1e-7 or abs(r.iterations - ANCHOR_JDQR) > 5:
+        raise RuntimeError(f"JDQR Laplace 64^2: {r.converged} converged "
+                           f"in {r.iterations}, gap {gap:.1e}, residual "
+                           f"{resid:.1e}")
+    out["jdqr"] = {"converged": r.converged, "outer": r.iterations,
+                   "solve_s": t, "corrections": dict(jd.corrections),
+                   "value_gap": gap, "max_residual": resid,
+                   "launches": dia_matvec.launches}
+
+    # (b)
+    out["jdqr_pair"] = {}
+    for nx, (want, anchor_outer, tol) in ANCHOR_PAIR.items():
+        Kc = cavity_jacobian(nx, nx, re=1000.0).tocsr()
+        pc_ = eig_params(nx, "Stokes-C", **{
+            "How Many": 4, "Convergence Tolerance": 1e-6,
+            "Number of Iterations": 80, "Maximum Subspace Dimension": 30,
+            "Restart Dimension": 12})
+        Pc = Preconditioner(Kc, pc_, device=device).compute()
+        jd = JDQR(Kc, None, Pc, pc_, device=device)
+        t, r = wall_median(jd.solve, 1)
+        vals = np.sort_complex(np.asarray(r.values, dtype=complex))
+        want = np.sort_complex(np.asarray(want))
+        scale = np.abs(want).max()
+        gap = float(np.abs(vals - want).max() / scale) \
+            if r.converged == 4 else float("inf")
+        pair = int((np.abs(vals.imag) > 1e-3 * scale).sum())
+        resid = eig_residuals(Kc, r)
+        log(f"JDQR cavity {nx}^2 Re 1000 (n={Kc.shape[0]}): {r.converged} "
+            f"converged in {r.iterations} outer iterations (JAX CPU "
+            f"{anchor_outer}), values {np.array2string(vals, precision=8)};"
+            f" {pair} of them with a nonzero imaginary part; max |lambda - "
+            f"JAX CPU's| / |lambda|max {gap:.1e} (tol {tol:g}), max "
+            f"residual {resid:.1e}; {jd.corrections} correction solves, "
+            f"{t:.4f} s")
+        if r.converged != 4 or pair != 2 or jd.corrections["pair"] <= 0 \
+                or not gap <= tol or not resid <= 1e-5:
+            raise RuntimeError(f"JDQR cavity {nx}^2: {r.converged} "
+                               f"converged, {pair} complex values, gap "
+                               f"{gap:.1e}, residual {resid:.1e}")
+        out["jdqr_pair"][str(nx)] = {
+            "converged": r.converged, "outer": r.iterations, "solve_s": t,
+            "corrections": dict(jd.corrections), "value_gap_rel": gap,
+            "max_residual": resid}
+
+    # (c)
+    S = Solver(K, P, params, device=device)
+    solves = []
+    inner = S.apply_inverse
+
+    def counted(b):
+        x, res = inner(b)
+        solves.append(res.iters)
+        return x, res
+    S.apply_inverse = counted
+    reset_counts()
+    t, r = wall_median(lambda: shift_invert_eigs(K, None, S, k=10,
+                                                 target=0.0, tol=1e-10), 1)
+    launches = dia_matvec.launches
+    gap = float(np.abs(np.sort(np.abs(np.real(r.values))) - ref).max())
+    log(f"shift_invert_eigs Laplace 64^2: max |lambda - ARPACK's| "
+        f"{gap:.1e}; {len(solves)} inner solves (JAX CPU "
+        f"{ANCHOR_SHIFT_INVERT_SOLVES}) of {statistics.median(solves):.0f} "
+        f"iterations (median), {t:.4f} s, "
+        f"{t / max(len(solves), 1) * 1e3:.2f} ms per solve; dia_spmv "
+        f"launches {launches}")
+    if not gap <= 1e-8 or launches <= 0 or \
+            abs(len(solves) - ANCHOR_SHIFT_INVERT_SOLVES) > 2:
+        raise RuntimeError(f"shift_invert_eigs: gap {gap:.1e}, "
+                           f"{len(solves)} inner solves, {launches} "
+                           f"dia_spmv launches")
+    out["shift_invert"] = {"value_gap": gap, "inner_solves": len(solves),
+                           "solve_s": t, "launches": launches}
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1360,6 +1851,7 @@ def main(argv=None) -> int:
 
     # -- 3. kernels against their plain versions ----------------------------
     dia = check_dia_kernel(device, baseline)
+    dia_solver_err = check_dia_solver_shapes(device)
     mv = check_dense_matvec(device)
 
     # -- 4. probe path ----------------------------------------------------------
@@ -1439,6 +1931,18 @@ def main(argv=None) -> int:
     # -- 17. stokes32cube_skew_L2 -------------------------------------------------
     stokes32 = drive_stokes32cube(device)
 
+    # -- 18. deflated solve ---------------------------------------------------
+    deflated = drive_deflated_aniso(device)
+
+    # -- 19. bordered + deflated --------------------------------------------------
+    bordered_deflated = drive_bordered_deflated(device)
+
+    # -- 20. complex solves -------------------------------------------------------
+    cplx = drive_complex(device)
+
+    # -- 21. eigenvalues ----------------------------------------------------------
+    eigen = drive_eigen(device)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     main32 = dia["cavity64"]["f32"]
     sweep = {shape: {tag: {k: r[k] for k in (
@@ -1467,7 +1971,12 @@ def main(argv=None) -> int:
             **{f"factor_f64_{t.split()[0].lower()}": r["launches"]
                for t, r in factor64.items() if "launches" in r},
             "stokes32cube": stokes32["launches"],
-            "stokes32cube_f64": stokes32["f64_launches"]},
+            "stokes32cube_f64": stokes32["f64_launches"],
+            "deflated": deflated["launches"],
+            "bordered_deflated": bordered_deflated["launches"],
+            "complex": cplx["launches"],
+            "jdqr": eigen["jdqr"]["launches"],
+            "shift_invert": eigen["shift_invert"]["launches"]},
         "launches_per": {
             **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
             "bordered_solve": bordered["launches"],
@@ -1475,11 +1984,17 @@ def main(argv=None) -> int:
             "stokesB_64_step": stokesB["launches"],
             "restarted_solve": restart["launches"],
             "bgrid_apply": bgrid["8_bgrid"]["launches_per_apply"],
-            "plain_apply": bgrid["8_plain"]["launches_per_apply"]},
-        "max_abs_err": max(r["max_abs_err"] for recs in dia.values()
-                           for r in recs.values()),
-        "max_rel_err": max(r["max_rel_err"] for recs in dia.values()
-                           for r in recs.values()),
+            "plain_apply": bgrid["8_plain"]["launches_per_apply"],
+            "deflation_setup": deflated["setup_launches"],
+            "deflated_solve": deflated["solve_launches"],
+            "bordered_deflation_setup": bordered_deflated["setup_launches"],
+            "bordered_deflated_solve": bordered_deflated["solve_launches"]},
+        "max_abs_err": max(dia_solver_err[0], *(
+            r["max_abs_err"] for recs in dia.values()
+            for r in recs.values())),
+        "max_rel_err": max(dia_solver_err[1], *(
+            r["max_rel_err"] for recs in dia.values()
+            for r in recs.values())),
         "ms": main32["device_us"] * 1e-3,
         "plain_ms": main32["plain_device_us"] * 1e-3,
         "bound_ms": main32["bound_us"] * 1e-3,
@@ -1516,7 +2031,9 @@ def main(argv=None) -> int:
         "continuation": cont, "stokesB_64": stokesB,
         "stokes128_L2": stokes128, "restart": restart, "direct": direct,
         "bgrid": bgrid, "factor_precision": factor64,
-        "stokes32cube_skew_L2": stokes32}))
+        "stokes32cube_skew_L2": stokes32, "deflated": deflated,
+        "bordered_deflated": bordered_deflated, "complex": cplx,
+        "eigen": eigen}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

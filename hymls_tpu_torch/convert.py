@@ -14,8 +14,10 @@ the repacked tree `_sfactors`,
 {"levels": [{A11, A21, G, blk: [...]}, ...], "coarse"}.
 After `np.asarray` on each leaf these functions copy them into the
 port's tensors, each leaf in its own dtype, so that the port's applies
-can run on the reference's own plans and factors.  Nothing here imports
-JAX.
+can run on the reference's own plans and factors.  The solvers hold no
+parameters; the one thing of theirs that crosses is a deflation space
+with its correction system (`deflation_from_numpy`).  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from .core.preconditioner import (LEVEL_FIELDS_INT, LEVEL_FIELDS_BOOL,
                                   LEVEL_FIELDS_FLOAT, COARSE_FIELDS,
                                   SPLIT_FIELDS, DIRECT_FIELDS, APPLY_FIELDS,
                                   clamp_sentinels)
+from .solvers.deflation import Deflation
 
 
 def _index_dict(d, fields, device):
@@ -100,3 +103,12 @@ def sfactors_from_numpy(sfactors, *, device):
             raise ValueError(f"level {lev}: structured factors have keys "
                              f"{sorted(f)}, expected {list(SFACTOR_KEYS)}")
     return factors_from_numpy(sfactors, device=device)
+
+
+def deflation_from_numpy(V, AV, ATV, R, D) -> Deflation:
+    """The fields of the reference's `Deflation` (`Solver._deflation`
+    after `setup_deflation`) as the port's, so that the port's deflated
+    apply (`solvers.deflation.deflated_apply`) runs on the reference's
+    own space and correction system.  Both keep them on the host."""
+    return Deflation(*(np.array(a, dtype=np.float64)
+                       for a in (V, AV, ATV, R, D)))

@@ -743,11 +743,6 @@ class _BGridConjugation:
 # Preconditioner
 # ---------------------------------------------------------------------------
 
-def _unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to hymls_tpu_torch yet (ROADMAP {item})")
-
-
 def _canonical(K: sp.spmatrix) -> sp.csr_matrix:
     K = K.tocsr()
     K.sum_duplicates()
@@ -1167,6 +1162,14 @@ class Preconditioner:
         if self._structured_active:
             return self._structured.repack(pruned)
         return pruned
+
+    def apply_inverse_fn(self):
+        """(apply_fn, factors, plans) with apply_fn(factors, plans, b)
+        -> x, computing first when there are no factors yet: what a
+        solver needs to embed the apply in its own loop."""
+        if self._factors is None:
+            self.compute()
+        return self.apply_fn, self.apply_factors, self._aplans
 
     def apply_inverse(self, b):
         """x = P^{-1} b for a single vector (tensor or numpy).  With a

@@ -31,10 +31,14 @@ class KrylovResult(NamedTuple):
     converged: bool
 
 
+_REAL_OF = {torch.complex128: torch.float64, torch.complex64: torch.float32}
+
+
 def _as_dtype(v: float, dtype) -> float:
-    """A Python scalar rounded to `dtype`, so that host comparisons
-    match the reference's in-dtype comparisons."""
-    return float(torch.tensor(v, dtype=dtype))
+    """A Python scalar rounded to `dtype` (to its real type, for a
+    complex one), so that host comparisons match the reference's
+    in-dtype comparisons."""
+    return float(torch.tensor(v, dtype=_REAL_OF.get(dtype, dtype)))
 
 
 def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
@@ -53,10 +57,6 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     have been spent (the cycle under way runs to its end).
     _scale: a restart cycle's convergence scale, that of the whole
     solve."""
-    if torch.is_complex(b):
-        raise NotImplementedError(
-            "complex GMRES is not ported to hymls_tpu_torch yet "
-            "(ROADMAP M10)")
     if restart is not None and restart < maxiter:
         return _gmres_restarted(op, b, x0, prec, tol=tol, maxiter=maxiter,
                                 left=left, scale_with_rhs=scale_with_rhs,
@@ -90,12 +90,16 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     V[0] = torch.where(beta > 0, r0 / beta, r0)
     R = torch.zeros((m + 1, m), dtype=dtype, device=b.device)
     g = torch.zeros(m + 1, dtype=dtype, device=b.device)
-    g[0] = beta
+    g[0] = beta.to(dtype)
     # accumulated Givens product, applied to each new column as one
     # matvec (rows/cols >= k+2 are still identity and the column is
     # zero there)
     Q = torch.eye(m + 1, dtype=dtype, device=b.device)
-    one = torch.ones((), dtype=dtype, device=b.device)
+    # norms and moduli are real tensors also for complex vectors: `one`
+    # is their unit, `one_c` and `zero_c` those of the vectors' dtype
+    one = torch.ones((), dtype=beta.dtype, device=b.device)
+    one_c = one.to(dtype)
+    zero_c = torch.zeros_like(one_c)
 
     res = float(beta / scale)
     done = res <= tol
@@ -103,13 +107,15 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     while k < m and not done:
         w = matop(V[k])
         # CGS2 against basis vectors 0..k (the rows above k are still
-        # zero, so the slice equals the reference's masked product)
+        # zero, so the slice equals the reference's masked product);
+        # conj() of a real tensor is the tensor itself
         Vk = V[:k + 1]
-        h1 = torch.mv(Vk, w)
+        Vc = Vk.conj()
+        h1 = torch.mv(Vc, w)
         w = w - torch.mv(Vk.T, h1)
-        h2 = torch.mv(Vk, w)
+        h2 = torch.mv(Vc, w)
         w = w - torch.mv(Vk.T, h2)
-        hk1 = torch.linalg.norm(w)
+        hk1 = torch.linalg.norm(w).to(dtype)
         V[k + 1] = torch.where(torch.abs(hk1) > 0, w / hk1, w)
 
         col = torch.zeros(m + 1, dtype=dtype, device=b.device)
@@ -117,21 +123,22 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
         col[k + 1] = hk1
         col = torch.mv(Q, col)
 
-        # new rotation zeroing col[k+1]
+        # new rotation zeroing col[k+1] (complex-safe Givens: c real,
+        # s = sgn(a) conj(b) / r)
         a, bb = col[k], col[k + 1]
         denom = torch.sqrt(torch.abs(a) ** 2 + torch.abs(bb) ** 2)
         absa = torch.abs(a)
-        ck = torch.where(denom > 0, absa / denom, one)
+        ck = torch.where(denom > 0, absa / denom, one).to(dtype)
         sgn = torch.where(absa > 0, a / torch.where(absa > 0, absa, one),
-                          one)
-        sk = torch.where(denom > 0, sgn * bb / denom, torch.zeros_like(one))
+                          one_c)
+        sk = torch.where(denom > 0, sgn * bb.conj() / denom, zero_c)
         col[k] = denom * sgn
         col[k + 1] = 0.0
         # fold G_k into Q: rows k and k+1 mix
         qk, qk1 = Q[k].clone(), Q[k + 1].clone()
         Q[k] = ck * qk + sk * qk1
-        Q[k + 1] = -sk * qk + ck * qk1
-        gk1 = -sk * g[k]
+        Q[k + 1] = -sk.conj() * qk + ck * qk1
+        gk1 = -sk.conj() * g[k]
         g[k] = ck * g[k]
         g[k + 1] = gk1
 

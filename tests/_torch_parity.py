@@ -14,6 +14,13 @@ from hymls_tpu_torch.stencils import create_matrix, create_testvector
 
 LEVEL_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
 
+# The tests run at small sizes, usually in several worker processes side
+# by side: one intra-op thread each, or the workers' thread pools fight
+# over the cores and the many small tensor ops of a Krylov loop take
+# ten times as long.  Collection imports this module before any test
+# runs, so the setting holds for the whole process.
+torch.set_num_threads(1)
+
 
 def rel(ref, got, floor=1e-300):
     """max|ref - got| over max(max|ref|, floor); 0 for empty arrays."""
@@ -99,3 +106,60 @@ def solve_both(d, K, Pj, Pt, b, d_ref=None):
 
 def relres(K, x, b):
     return float(np.linalg.norm(K @ np.asarray(x) - b) / np.linalg.norm(b))
+
+
+# -- the solver family (deflated, complex and eigenvalue solves) -----------
+
+def laplace_cfg(nx, levels=2, maxiter=100, tol=1e-10, solver=None,
+                drv=None):
+    """The parameter dict of tests/test_variants.py's `_params` and
+    tests/test_combos.py's `_neumann_setup`."""
+    slv = {"Krylov Method": "GMRES", "Initial Vector": "Zero",
+           "Iterative Solver": {"Maximum Iterations": maxiter,
+                                "Convergence Tolerance": tol}}
+    slv.update(solver or {})
+    return {"Problem": {"Equations": "Laplace", "Dimension": 2,
+                        "nx": nx, "ny": nx},
+            "Driver": dict(drv or {}),
+            "Solver": slv,
+            "Preconditioner": {"Separator Length": 4,
+                               "Number of Levels": levels}}
+
+
+def aniso_laplace(nx, eps=0.01):
+    """The anisotropic Laplace of tests/test_variants.py's deflated
+    solve."""
+    from hymls_tpu_torch.stencils.generators import _cross2d
+    return (-_cross2d(nx, nx, 2 + 2 * eps, -1.0, -1.0, -eps, -eps)).tocsr()
+
+
+def neumann_setup(nx=32, levels=2, solver=None):
+    """(dict, K, test vector, constant null space) of the Neumann
+    Laplace of tests/test_combos.py."""
+    from hymls_tpu_torch.stencils import laplace2d_neumann, create_nullspace
+    d = laplace_cfg(nx, levels, solver=solver,
+                    drv={"Null Space Type": "Constant"})
+    K = laplace2d_neumann(nx, nx).tocsr()
+    return d, K, create_testvector(T.Params(d), K), \
+        create_nullspace(T.Params(d), K.shape[0])
+
+
+def solver_pair(d, K, tv=None, border=None):
+    """(reference, port) f64 `Solver`s on computed preconditioners of
+    the same problem, the border set on both before the factorization."""
+    Pj, Pt = pair(d, K, tv, compute=False)
+    Sj = H.Solver(K, Pj, H.Params(d))
+    St = T.Solver(K, Pt, T.Params(d), device="cpu")
+    if border is not None:
+        Sj.set_border(border)
+        St.set_border(border)
+    Pj.compute()
+    Pt.compute()
+    return Sj, St
+
+
+def projector_gap(Va, Vb):
+    """max |Va Va' - Vb Vb'|: two orthonormal blocks compared as
+    subspaces (QR column signs differ between libraries)."""
+    Va, Vb = np.asarray(Va), np.asarray(Vb)
+    return float(np.abs(Va @ Va.T - Vb @ Vb.T).max())

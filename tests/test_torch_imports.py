@@ -31,6 +31,10 @@ def test_imports_without_jax():
         "import hymls_tpu_torch.core.structured\n"
         "import hymls_tpu_torch.tools.loop_pathology_bench\n"
         "import hymls_tpu_torch.nonlinear\n"
+        "import hymls_tpu_torch.ops.operators\n"
+        "import hymls_tpu_torch.solvers.deflation\n"
+        "import hymls_tpu_torch.solvers.complex_solver\n"
+        "import hymls_tpu_torch.solvers.eigen\n"
         "assert not any(m == 'hymls_tpu' or m.startswith('hymls_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok')\n")
