@@ -27,8 +27,10 @@ raises on failure (nonzero exit, no result line):
      synchronize), for the kernel and for cuSPARSE.  Then, without
      timing, the DIA operators of phases 18, 19 and 21 as make_operator
      builds them (5 bands: the anisotropic and the Neumann Laplace at
-     128^2, Laplace 64^2, and their transposes) in f64 and f32, with an
-     aligned and an unaligned x, at the same tolerances.  The dense matvec
+     128^2, Laplace 64^2, and their transposes) and those of every
+     refinement of phase 22's configs as the driver builds them, in f64
+     and f32, with an aligned and an unaligned x, at the same
+     tolerances.  The dense matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
      against torch.matmul at 2048 and 8192;
@@ -140,10 +142,36 @@ raises on failure (nonzero exit, no result line):
      values within 1e-8 of ARPACK's, inner solves within 2 of the JAX
      package's CPU count; the DIA kernel must have run.
 
-Each of the paths 4-6 and 8-21 (phase 8 once per apply, phase 10's
+ 22. the driver on the card: run_with_refinements (the entry point of
+     `python -m hymls_tpu_torch.driver`) on configs/laplace1.xml,
+     stokes2.xml, bordering1.xml, deflation1.xml, laplace1_eigs.xml and
+     stokes2_3D.xml at their own sizes and refinement depths (stokes2_3D
+     builds its matrix: its dataset is not in the repository), all in
+     f64: every config's 'Targets' met, every solve's iterations within
+     1 of the JAX package's CPU count and JDQR's outer iterations within
+     5; then one subprocess `python -m hymls_tpu_torch.driver
+     configs/laplace1.xml`, which must exit 0 with "ALL TESTS PASSED";
+ 23. the MATLAB bridge: `python -m hymls_tpu_torch.matlab_bridge DIR` in
+     a subprocess on the card, driven through its file protocol on the
+     cavity64 Jacobian (init, apply of two columns, compute with new
+     values, apply, free); each apply within 1e-12 (relative) of an
+     in-process preconditioner on the card built from the same files;
+ 24. the plan disk cache: phase 17 runs with HYMLS_PLAN_CACHE a fresh
+     temporary directory, so its cold build stores the 32^3 plans;
+     here stokes32cube_skew_L2 is constructed again and must load them
+     and build none; the host plan seconds of both, and the Newton step
+     after the load held as phase 17 holds it (and beside phase 17's
+     count).
+
+Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
+empty), so that its plan builds are cold ones.
+
+Each of the paths 4-6 and 8-24 (phase 8 once per apply, phase 10's
 Newton solve and trace apart; in phases 20-21 the solves on ELL
-operators launch no DIA kernel and say so) is driven with the kernels'
-launch counts set to 0 just before it and read just after; each path
+operators launch no DIA kernel and say so; phase 22 once per config;
+phase 23's server is another process, whose launches are not counted
+here) is driven with the kernels' launch counts set to 0 just before it
+and read just after; each path
 whose operator is a DIA operator must have launched the kernel.  Phase
 7 takes 2 rounds (medians of 4) and phase 8's times 3 rounds (medians
 of 6) so that all phases fit.  The line before the last is
@@ -152,11 +180,14 @@ the kernels' JSON record; the last line is {"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -231,6 +262,18 @@ ANCHOR_PAIR = {
     64: ((-1.3151893996e-12, -7.5974113497e-07,
           -7.7383087053e-07 + 2.3665094275e-06j,
           -7.7383087053e-07 - 2.3665094275e-06j), 20, 1e-5)}
+# CPU anchors of the JAX package for phase 22 (tests/_torch_anchors.py 22;
+# the port's CPU counts are the same): per config, per refinement, the
+# iterations of every solve, and JDQR's outer iterations on
+# laplace1_eigs per refinement (the port's: 44 and 43)
+ANCHOR_DRIVER = {
+    "laplace1": [[20, 20, 20, 20], [21, 21, 21, 21], [21, 21, 21, 21]],
+    "stokes2": [[47, 48, 48, 48]],
+    "bordering1": [[26], [36], [37]],
+    "deflation1": [[48, 48]],
+    "laplace1_eigs": [[21], [21]],
+    "stokes2_3D": [[112, 113]]}
+ANCHOR_DRIVER_JDQR = [45, 46]
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
@@ -370,17 +413,44 @@ def solver_family_matrices():
     return out
 
 
+def driver_matrices():
+    """The matrices of every refinement of phase 22's configs, as the
+    driver builds them, each with its transpose (setup_deflation's second
+    operator); a matrix equal to one listed before it is left out."""
+    import hashlib
+    import hymls_tpu_torch.driver as drv
+    from hymls_tpu_torch.config import load_xml
+    from hymls_tpu_torch.tools.driver_cases import (driver_params,
+                                                    refined_matrices)
+    out, seen = {}, set()
+    for name in ANCHOR_DRIVER:
+        for p, K in refined_matrices(drv, driver_params(load_xml, name)):
+            prob = p.sublist("Problem")
+            size = "x".join(str(prob.get(k)) for k in ("nx", "ny", "nz")
+                            if prob.get("Dimension", 2) > 2 or k != "nz")
+            for tag, M in (("", K.tocsr()), ("^T", K.T.tocsr())):
+                M.sort_indices()
+                h = hashlib.sha256()
+                for a in (M.indptr, M.indices, M.data):
+                    h.update(np.ascontiguousarray(a).tobytes())
+                if (M.shape, h.digest()) not in seen:
+                    seen.add((M.shape, h.digest()))
+                    out[f"{name} {size}{tag}"] = M
+    return out
+
+
 def check_dia_solver_shapes(device):
     """Phase 3: the DIA kernel against its plain version on the
-    operators of the solver family's paths, built by `make_operator` as
-    Solver builds them, in f64 (the paths' type) and f32, with an
+    operators of the solver family's and the driver's paths, built by
+    `make_operator` as Solver builds them, in f64 (the paths' type) and f32, with an
     aligned and an unaligned x.  No timing.  Returns the largest
     (abs, rel) error."""
     from hymls_tpu_torch.ops.spmv import DiaOperator, make_operator
 
     rng = np.random.default_rng(13)
     worst = (0.0, 0.0)
-    for name, K in solver_family_matrices().items():
+    for name, K in {**solver_family_matrices(),
+                    **driver_matrices()}.items():
         op = make_operator(K, dtype=torch.float64, device=device)
         if not isinstance(op, DiaOperator):
             raise RuntimeError(f"{name}: make_operator gave "
@@ -1445,7 +1515,9 @@ def drive_stokes32cube(device):
         raise RuntimeError(f"stokes32cube f64 GMRES: {res.iters} "
                            f"iterations, relres {relres:.3e}")
     out.update(f64_iters=res.iters, f64_relres=relres, f64_solve_s=t,
-               f64_launches=dia_matvec.launches)
+               f64_launches=dia_matvec.launches,
+               plan_s=S.precond.plan_seconds,
+               plan_from_cache=S.precond.plan_from_cache)
     return out
 
 
@@ -1802,6 +1874,223 @@ def drive_eigen(device):
     return out
 
 
+def drive_driver(device):
+    """Phase 22: run_with_refinements on the card for every config of
+    ANCHOR_DRIVER, with the launch counts set to 0 just before each;
+    then the driver's command line in a subprocess."""
+    import hymls_tpu_torch.driver as drv
+    from hymls_tpu_torch.config import load_xml
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.solvers import eigen
+    from hymls_tpu_torch.tools.driver_cases import (driver_params,
+                                                    eigen_results)
+
+    out = {}
+    for name, anchor in ANCHOR_DRIVER.items():
+        params = driver_params(load_xml, name)
+        reset_counts()
+        with eigen_results(eigen) as got:
+            t, reps = wall_median(
+                lambda: drv.run_with_refinements(params, device=device), 1)
+        launches = dia_matvec.launches
+        outer = [r.iterations for r in got]
+        iters = [[s.iters for s in r.solves] for r in reps]
+        relres = max(s.relres for r in reps for s in r.solves)
+        relerr = max(s.relerr for r in reps for s in r.solves)
+        failures = [f for r in reps for f in r.failures]
+        times = [(r.solves[-1].compute_time, r.solves[-1].solve_time)
+                 for r in reps]
+        jd = (f", JDQR outer {outer} (JAX CPU {ANCHOR_DRIVER_JDQR})"
+              if outer else "")
+        log(f"driver {name}: iterations {iters} (JAX CPU {anchor}), "
+            f"max relres {relres:.2e}, max relerr {relerr:.2e}, "
+            f"targets {'met' if not failures else failures}{jd}; "
+            f"{t:.2f} s in all, (compute, solve) s per refinement "
+            f"{[(round(c, 4), round(v, 4)) for c, v in times]}; "
+            f"dia_spmv launches {launches}")
+        if failures or [len(i) for i in iters] != \
+                [len(a) for a in anchor] or any(
+                    abs(x - y) > 1 for i, a in zip(iters, anchor)
+                    for x, y in zip(i, a)):
+            raise RuntimeError(f"driver {name}: iterations {iters}, "
+                               f"JAX CPU {anchor}; {failures}")
+        if outer and (len(outer) != len(ANCHOR_DRIVER_JDQR) or any(
+                abs(x - y) > 5
+                for x, y in zip(outer, ANCHOR_DRIVER_JDQR))):
+            raise RuntimeError(f"driver {name}: JDQR outer {outer}, "
+                               f"JAX CPU {ANCHOR_DRIVER_JDQR}")
+        if launches <= 0:
+            raise RuntimeError(f"the driver's {name} path never "
+                               f"launched dia_spmv")
+        out[name] = {"iters": iters, "max_relres": relres,
+                     "max_relerr": relerr, "seconds": t,
+                     "compute_solve_s": times, "launches": launches,
+                     **({"jdqr_outer": list(outer)} if outer else {})}
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "hymls_tpu_torch.driver",
+                        os.path.join("configs", "laplace1.xml")],
+                       cwd=HERE, capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+    t = time.perf_counter() - t0
+    tail = p.stdout.strip().splitlines()[-1:] or [""]
+    log(f"python -m hymls_tpu_torch.driver configs/laplace1.xml: exit "
+        f"{p.returncode}, last line {tail[0]!r}, {t:.2f} s")
+    if p.returncode != 0 or tail[0] != "ALL TESTS PASSED":
+        raise RuntimeError(f"the driver's command line failed "
+                           f"({p.returncode}):\n{p.stdout[-4000:]}"
+                           f"\n{p.stderr[-4000:]}")
+    out["command_line"] = {"config": "laplace1", "exit": p.returncode,
+                           "seconds": t}
+    return out
+
+
+def timed_rpc(cli, req):
+    """(response, s) of one bridge request with its file round trip."""
+    t0 = time.perf_counter()
+    resp = cli.rpc(req)
+    return resp, time.perf_counter() - t0
+
+
+def drive_bridge(device):
+    """Phase 23: the bridge server on the card against an in-process
+    preconditioner on the card built from the same files."""
+    import scipy.io as sio
+    from hymls_tpu_torch import Preconditioner
+    from hymls_tpu_torch.config import load_xml, save_xml
+    from hymls_tpu_torch.matlab_bridge import BridgeClient
+    from hymls_tpu_torch.stencils import create_testvector
+    from hymls_tpu_torch.utils.io import read_matrix, read_multivector
+
+    K0, _ = cavity64()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        sio.mmwrite(os.path.join(d, "A.mtx"), K0)
+        sio.mmwrite(os.path.join(d, "A2.mtx"), (K0 * 1.5).tocsr())
+        save_xml(cavity64_params(), os.path.join(d, "params.xml"))
+        X = np.random.default_rng(4).standard_normal((K0.shape[0], 2))
+        sio.mmwrite(os.path.join(d, "x.mtx"), X)
+        # what the server reads
+        K, K2 = (read_matrix(os.path.join(d, f)).tocsr()
+                 for f in ("A.mtx", "A2.mtx"))
+        params = load_xml(os.path.join(d, "params.xml"))
+        X = np.asarray(read_multivector(os.path.join(d, "x.mtx")))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hymls_tpu_torch.matlab_bridge", d,
+             "--device", str(device)],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            cli = BridgeClient(d, proc)
+            cli.wait(os.path.join(d, "server.ready"))
+            t_start = time.perf_counter() - t0
+            resp, t_init = timed_rpc(cli, {"cmd": "init", "matrix": "A.mtx",
+                                           "params": "params.xml"})
+            P = Preconditioner(K, params, device=device,
+                               testvector=create_testvector(params, K))
+            P.compute()
+            errs, t_apply = [], []
+            for Kc in (K, K2):
+                if Kc is K2:
+                    _, t_compute = timed_rpc(cli, {"cmd": "compute",
+                                                   "matrix": "A2.mtx"})
+                    P.compute(K2)
+                _, t = timed_rpc(cli, {"cmd": "apply", "x": "x.mtx",
+                                       "y": "y.mtx"})
+                t_apply.append(t)
+                Y = np.asarray(sio.mmread(os.path.join(d, "y.mtx")))
+                ref = np.stack([P.apply_inverse(X[:, j]).cpu().numpy()
+                                for j in range(X.shape[1])], axis=1)
+                errs.append(float(np.abs(Y - ref).max() /
+                                  np.abs(ref).max()))
+            cli.rpc({"cmd": "free"})
+            code = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            proc.stdout.close()
+    log(f"bridge on the card (cavity64, n={K.shape[0]}): server ready "
+        f"{t_start:.2f} s after start, init {t_init:.3f} s, apply of 2 "
+        f"columns {t_apply[0]:.3f} s, compute {t_compute:.3f} s, apply "
+        f"{t_apply[1]:.3f} s (each with its file round trip); max |Y - "
+        f"in-process|/|Y|max {max(errs):.1e} (before and after compute "
+        f"{errs[0]:.1e}, {errs[1]:.1e}); server exit {code}")
+    if resp["n"] != K.shape[0] or code != 0 or not max(errs) <= 1e-12:
+        raise RuntimeError(f"bridge: n {resp['n']}, exit {code}, errors "
+                           f"{errs}")
+    out.update(n=K.shape[0], start_s=t_start, init_s=t_init,
+               apply_s=t_apply, compute_s=t_compute, max_rel_err=max(errs),
+               exit=code)
+    return out
+
+
+def drive_plan_cache(device, cache_dir, cold):
+    """Phase 24: stokes32cube_skew_L2 constructed again over the plan
+    disk cache that phase 17's cold build (`cold`, its numbers) stored
+    in the fresh directory `cache_dir`: the plans load, none is built;
+    the Newton step after the load."""
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    from hymls_tpu_torch.stencils import create_testvector
+
+    params, K, b = stokes32cube_case()
+    tv = create_testvector(params, K)
+    stored = [os.path.getsize(os.path.join(cache_dir, f))
+              for f in os.listdir(cache_dir) if f.endswith(".pkl")]
+    reset_counts()
+    with plan_cache(cache_dir):
+        t_warm, S = wall_median(lambda: IterativeRefinementSolver(
+            K, params, testvector=tv, device=device), 1)
+    P = S.precond
+    t_compute, _ = wall_median(S.compute, 1)
+    t_step, res = wall_median(
+        lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b), 1)
+    launches = dia_matvec.launches
+    relres = true_relres(K, res.x, b)
+    out = {"cold_plan_s": cold["plan_s"], "warm_plan_s": P.plan_seconds,
+           "cold_setup_s": cold["setup_s"], "warm_setup_s": t_warm,
+           "stored_bytes": stored, "inner": res.iters, "relres": relres,
+           "compute_s": t_compute, "newton_step_s": t_step,
+           "launches": launches}
+    log(f"plan cache stokes32cube_skew_L2: phase 17's cold build stored "
+        f"{len(stored)} plan file(s) of {sum(stored) / 1e6:.1f} MB; host "
+        f"plans built in {cold['plan_s']:.2f} s there, loaded in "
+        f"{P.plan_seconds:.3f} s here; constructor {cold['setup_s']:.2f} s "
+        f"cold (the store included), {t_warm:.2f} s from the cache; then "
+        f"compute {t_compute:.4f} s, newton_step {t_step:.4f} s: inner f32 "
+        f"iterations {res.iters} (phase 17 {cold['inner']}, JAX CPU "
+        f"{ANCHOR_STOKES32}), true f64 relres {relres:.3e}; dia_spmv "
+        f"launches {launches}")
+    if len(stored) != 1 or cold["plan_from_cache"] or \
+            not P.plan_from_cache:
+        raise RuntimeError(f"plan cache: stored {stored}, cold from cache "
+                           f"{cold['plan_from_cache']}, warm from cache "
+                           f"{P.plan_from_cache}")
+    if not relres <= 1e-7 or res.iters > 500 or \
+            abs(res.iters - ANCHOR_STOKES32) > \
+            STOKES32_BAND * ANCHOR_STOKES32 or launches <= 0:
+        raise RuntimeError(f"plan cache stokes32cube: {res.iters} inner "
+                           f"iterations, relres {relres:.3e}, {launches} "
+                           f"dia_spmv launches")
+    return out
+
+
+@contextlib.contextmanager
+def plan_cache(d):
+    """HYMLS_PLAN_CACHE set to `d` inside the block, restored after."""
+    old = os.environ.get("HYMLS_PLAN_CACHE")
+    os.environ["HYMLS_PLAN_CACHE"] = d
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HYMLS_PLAN_CACHE"]
+        else:
+            os.environ["HYMLS_PLAN_CACHE"] = old
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1812,6 +2101,9 @@ def main(argv=None) -> int:
                          "kernel at every sweep shape")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # every plan build is a cold one, except phase 24's load of what
+    # phase 17 stored (each into one fresh temporary directory)
+    os.environ["HYMLS_PLAN_CACHE"] = ""
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1928,20 +2220,34 @@ def main(argv=None) -> int:
     # -- 16. 'Factor Precision' f64 -----------------------------------------------
     factor64 = drive_factor_precision(device, S)
 
-    # -- 17. stokes32cube_skew_L2 -------------------------------------------------
-    stokes32 = drive_stokes32cube(device)
+    # -- 17. stokes32cube_skew_L2 (its plans stored for phase 24) ------------
+    cache_dir = tempfile.mkdtemp(prefix="hymls_plan_cache_")
+    try:
+        with plan_cache(cache_dir):
+            stokes32 = drive_stokes32cube(device)
 
-    # -- 18. deflated solve ---------------------------------------------------
-    deflated = drive_deflated_aniso(device)
+        # -- 18. deflated solve ----------------------------------------------
+        deflated = drive_deflated_aniso(device)
 
-    # -- 19. bordered + deflated --------------------------------------------------
-    bordered_deflated = drive_bordered_deflated(device)
+        # -- 19. bordered + deflated -----------------------------------------
+        bordered_deflated = drive_bordered_deflated(device)
 
-    # -- 20. complex solves -------------------------------------------------------
-    cplx = drive_complex(device)
+        # -- 20. complex solves ----------------------------------------------
+        cplx = drive_complex(device)
 
-    # -- 21. eigenvalues ----------------------------------------------------------
-    eigen = drive_eigen(device)
+        # -- 21. eigenvalues -------------------------------------------------
+        eigen = drive_eigen(device)
+
+        # -- 22. the driver --------------------------------------------------
+        driver = drive_driver(device)
+
+        # -- 23. the MATLAB bridge -------------------------------------------
+        bridge = drive_bridge(device)
+
+        # -- 24. the plan disk cache -----------------------------------------
+        cached = drive_plan_cache(device, cache_dir, stokes32)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     main32 = dia["cavity64"]["f32"]
@@ -1976,7 +2282,10 @@ def main(argv=None) -> int:
             "bordered_deflated": bordered_deflated["launches"],
             "complex": cplx["launches"],
             "jdqr": eigen["jdqr"]["launches"],
-            "shift_invert": eigen["shift_invert"]["launches"]},
+            "shift_invert": eigen["shift_invert"]["launches"],
+            "driver": sum(driver[c]["launches"] for c in ANCHOR_DRIVER),
+            **{f"driver_{c}": driver[c]["launches"] for c in ANCHOR_DRIVER},
+            "plan_cache_stokes32cube": cached["launches"]},
         "launches_per": {
             **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
             "bordered_solve": bordered["launches"],
@@ -2033,7 +2342,8 @@ def main(argv=None) -> int:
         "bgrid": bgrid, "factor_precision": factor64,
         "stokes32cube_skew_L2": stokes32, "deflated": deflated,
         "bordered_deflated": bordered_deflated, "complex": cplx,
-        "eigen": eigen}))
+        "eigen": eigen, "driver": driver, "bridge": bridge,
+        "plan_cache": cached}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

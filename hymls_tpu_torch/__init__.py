@@ -15,8 +15,15 @@ Laplace problems on structured staggered grids) as the JAX package
     hand-written CUDA kernel (csrc/dia_spmv.cu, ops/dia_spmv.py).
 
 Every public constructor takes `device=`; nothing here picks a device.
+The entry points (`python -m hymls_tpu_torch.driver`, `python -m
+hymls_tpu_torch.matlab_bridge`) run on the card unless `--device cpu`
+asks otherwise.
 """
-import torch as _torch
+from .utils import malloc as _malloc
+
+_malloc.maybe_enable_from_env()
+
+import torch as _torch  # noqa: E402
 
 # TRUE-f32 products everywhere, the twin of hymls_tpu/__init__.py's
 # 'highest' matmul precision: on Hopper an f32 matmul may otherwise run

@@ -34,6 +34,13 @@ the reference documents as bit-identical.  Index tensors are int64.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
+import os
+import pickle
+import stat
+import tempfile
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -47,6 +54,7 @@ from ..grid import GridInfo, grid_from_params
 from ..partition.cartesian import CartesianPartitioner, PartitionParams
 from ..partition.skew import SkewCartesianPartitioner
 from ..partition.hierarchical import build_hierarchy
+from .. import native as _native
 from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
 from ..ops.spmv import DiaOperator
@@ -740,6 +748,91 @@ class _BGridConjugation:
 
 
 # ---------------------------------------------------------------------------
+# plan disk cache
+# ---------------------------------------------------------------------------
+
+#: host plan builds slower than this (seconds) are stored in the disk
+#: cache, as in the reference; the test suite's many small builds are
+#: not worth a file each
+PLAN_CACHE_MIN_BUILD_S = 5.0
+
+#: the plan-building sources, relative to the package: a change to any
+#: of them invalidates every cached plan
+_PLAN_SOURCES = ("core/plan.py", "core/preconditioner.py",
+                 "partition/cartesian.py", "partition/skew.py",
+                 "partition/hierarchical.py", "grid.py",
+                 "native/__init__.py", "native/planner.cpp")
+
+
+def _plan_cache_dir() -> str:
+    """HYMLS_PLAN_CACHE, as in the reference (the empty string turns the
+    cache off); by default a directory of this package's own under the
+    temporary directory.  The two packages never share pickles: the
+    reference's name hymls_tpu classes, and unpickling one would import
+    JAX."""
+    return os.environ.get(
+        "HYMLS_PLAN_CACHE",
+        os.path.join(tempfile.gettempdir(), "hymls_torch_plan_cache"))
+
+
+@functools.lru_cache(maxsize=1)
+def _plan_builder_salt() -> bytes:
+    h = hashlib.sha256(b"hymls-torch-plan-cache-v1")
+    base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for rel in _PLAN_SOURCES:
+        with open(os.path.join(base, rel), "rb") as f:
+            h.update(f.read())
+    return h.digest()
+
+
+def _plan_cache_trusted(d: str) -> bool:
+    """Whether the cache directory `d` is this user's own and writable by
+    no one else.  Loading a pickle runs code, so a directory that another
+    user created or may write into (a shared temporary directory, say)
+    turns the cache off."""
+    try:
+        st = os.stat(d)
+    except OSError:
+        return False
+    return (stat.S_ISDIR(st.st_mode) and st.st_uid == os.getuid()
+            and not st.st_mode & (stat.S_IWGRP | stat.S_IWOTH))
+
+
+def _plan_cache_load(key: Optional[str]):
+    if key is None or not _plan_cache_trusted(_plan_cache_dir()):
+        return None
+    try:
+        with open(os.path.join(_plan_cache_dir(), key + ".pkl"), "rb") as f:
+            return pickle.load(f)
+    except (OSError, pickle.PickleError, EOFError, AttributeError,
+            ImportError):
+        return None
+
+
+def _plan_cache_store(key: Optional[str], payload) -> None:
+    """Write atomically (a temporary file, then a rename), so that a
+    process reading the cache never sees half a pickle; a failed write
+    leaves no temporary file behind."""
+    if key is None:
+        return
+    d = _plan_cache_dir()
+    try:
+        os.makedirs(d, mode=0o700, exist_ok=True)
+        if not _plan_cache_trusted(d):
+            return
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, os.path.join(d, key + ".pkl"))
+        except BaseException:
+            os.unlink(tmp)
+            raise
+    except (OSError, pickle.PickleError):
+        pass
+
+
+# ---------------------------------------------------------------------------
 # Preconditioner
 # ---------------------------------------------------------------------------
 
@@ -838,7 +931,16 @@ class Preconditioner:
 
     # -- symbolic setup ----------------------------------------------------
     def initialize(self):
-        """Partition every level and build the static plans (host)."""
+        """Partition every level and build the static plans (host).
+
+        The plans depend only on the matrix pattern, the test vector and
+        the grid and preconditioner configuration, never on the values,
+        so a build slower than `PLAN_CACHE_MIN_BUILD_S` is stored in a
+        disk cache (`_plan_cache_dir`) under a hash of those inputs and
+        of the plan-building sources, and later constructions load it
+        (the reference's plan cache, hymls_tpu/core/preconditioner.py).
+        `plan_from_cache` and `plan_seconds` say which happened and how
+        long it took."""
         g = self.grid
         part = PartitionParams.from_params(self.params, g, level=0)
         pattern = self.K.copy()
@@ -851,6 +953,9 @@ class Preconditioner:
         self.coarse_plan: Optional[CoarsePlan] = None
         self.direct_plan: Optional[DirectSCPlan] = None
         self._level_parts: List[PartitionParams] = []
+        t0 = time.perf_counter()
+        key = None
+        cached = None
         if self.max_level == 0:
             # the level-plan machinery for the elimination part, the
             # dense assembly maps for the rest
@@ -863,7 +968,13 @@ class Preconditioner:
             self.direct_plan = build_direct_plan(
                 self.K, plan, np.unique(hier.all_separator_nodes()),
                 self.fix_gids)
-        for lev in range(self.max_level):
+        else:
+            key = self._plan_cache_key()
+            cached = _plan_cache_load(key)
+        if cached is not None:
+            (self.plans, self.hierarchies, self.coarse_plan,
+             self._level_parts) = cached
+        for lev in range(self.max_level if cached is None else 0):
             if lev > 0:
                 # re-resolve per-level parameters and keep the
                 # geometric separator-length evolution
@@ -883,12 +994,41 @@ class Preconditioner:
             self.hierarchies.append(hier)
             nodes = plan.next_nodes
             pattern = plan.next_pattern
-        if self.max_level > 0:
+        if self.max_level > 0 and cached is None:
             self.coarse_plan = build_coarse_plan(pattern, nodes,
                                                  self.fix_gids)
+        self.plan_from_cache = cached is not None
+        self.plan_seconds = time.perf_counter() - t0
+        if cached is None and self.plan_seconds > PLAN_CACHE_MIN_BUILD_S:
+            _plan_cache_store(key, (self.plans, self.hierarchies,
+                                    self.coarse_plan, self._level_parts))
         self._build_device_plans()
         self._init_structured()
         return self
+
+    def _plan_cache_key(self) -> Optional[str]:
+        """Hash of everything the plan build reads; None when the cache
+        is off (HYMLS_PLAN_CACHE='').  Unlike the reference's key it
+        also says whether the native planner built the plans: the
+        Python fallback orders the plan maps differently (equivalent
+        plans, not identical ones)."""
+        if not _plan_cache_dir():
+            return None
+        h = hashlib.sha256(_plan_builder_salt())
+        h.update(np.asarray(self.K.indptr, np.int64).tobytes())
+        h.update(np.asarray(self.K.indices, np.int64).tobytes())
+        h.update(self.testvector.tobytes())
+        # the per-level partition parameters, not the whole sublist: a
+        # Teuchos-style get() inserts defaults, which would make the key
+        # depend on what ran before
+        parts = [repr(PartitionParams.from_params(self.params, self.grid,
+                                                  level=lev))
+                 for lev in range(self.max_level)]
+        cfg = (repr(self.grid), self.max_level, self.variant,
+               self.partitioner_type, self.apply_dropping,
+               list(self.fix_gids), parts, _native.planner() is not None)
+        h.update(repr(cfg).encode())
+        return h.hexdigest()
 
     def _build_device_plans(self):
         """The plans as tensors: `_dplans` for the factorization (float
@@ -1162,6 +1302,29 @@ class Preconditioner:
         if self._structured_active:
             return self._structured.repack(pruned)
         return pruned
+
+    def dump_levels(self, prefix: str = "level") -> list:
+        """Write the level-0 matrix and every next-level matrix to
+        MatrixMarket files `<prefix><level>.mtx`, assembled in f64 (the
+        reference's dump_levels, after its HYMLS_STORE_MATRICES debug
+        mode).  Returns the written paths."""
+        from ..utils.io import write_matrix
+
+        paths = [f"{prefix}0.mtx"]
+        write_matrix(paths[0], self.K)
+        f64 = torch.float64
+        dplans = self._dplans if self.factor_dtype == f64 else [
+            _device_level(p, f64, self.device) for p in self.plans]
+        v = torch.as_tensor(self.K.data, dtype=f64, device=self.device)
+        for lev in range(self.max_level):
+            _f, v = _compute_level(v, dplans[lev],
+                                   apply_ot=self.plans[lev].apply_ot)
+            pat = self.plans[lev].next_pattern
+            M = sp.csr_matrix((v.cpu().numpy(), pat.indices, pat.indptr),
+                              shape=pat.shape)
+            paths.append(f"{prefix}{lev + 1}.mtx")
+            write_matrix(paths[-1], M)
+        return paths
 
     def apply_inverse_fn(self):
         """(apply_fn, factors, plans) with apply_fn(factors, plans, b)

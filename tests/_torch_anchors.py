@@ -1,11 +1,12 @@
-"""CPU anchors of chip_smoke.py's phases 18-21: the deflated, complex
-and eigenvalue solves at the sizes that script runs on the card, through
-the JAX package and through the port on the CPU.
+"""CPU anchors of chip_smoke.py's phases 18-22: the deflated, complex
+and eigenvalue solves and the driver's configs at the sizes that script
+runs on the card, through the JAX package and through the port on the
+CPU.
 
     JAX_PLATFORMS=cpu python tests/_torch_anchors.py [phase ...]
 
 prints one line per case and package (iterations, residuals, counts);
-phases are 18, 19, 20, 21a, 21b, 21c (default: all).  The numbers go
+phases are 18, 19, 20, 21a, 21b, 21c, 22 (default: all).  The numbers go
 into chip_smoke.py's ANCHOR_* constants and PERF.md section 4.
 """
 import os
@@ -217,8 +218,38 @@ def phase21c():
     both(run)
 
 
+def phase22():
+    """chip_smoke.py phase 22: the driver's configs at their own sizes
+    and refinement depths."""
+    import hymls_tpu.driver as HD
+    import hymls_tpu.solvers.eigen as HE
+    import hymls_tpu_torch.driver as TD
+    import hymls_tpu_torch.solvers.eigen as TE
+    from hymls_tpu.config import load_xml as jload
+    from hymls_tpu_torch.config import load_xml as tload
+    from hymls_tpu_torch.tools.driver_cases import (DRIVER_CONFIGS,
+                                                    driver_params,
+                                                    eigen_results)
+    mods = {"jax": (HD, HE, jload, {}),
+            "port": (TD, TE, tload, {"device": "cpu"})}
+    for name in DRIVER_CONFIGS:
+        print(f"22 driver: configs/{name}.xml, full depth")
+
+        def run(which):
+            drv, eig, load, kw = mods[which]
+            with eigen_results(eig) as got:
+                reps = drv.run_with_refinements(driver_params(load, name),
+                                                **kw)
+            outer = [r.iterations for r in got]
+            return (f"iterations {[[s.iters for s in r.solves] for r in reps]}"
+                    f", max relres {max(s.relres for r in reps for s in r.solves):.2e}"
+                    f", passed {all(r.passed for r in reps)}"
+                    f"{f', JDQR outer {outer}' if outer else ''}")
+        both(run)
+
+
 PHASES = {"18": phase18, "19": phase19, "20": phase20, "21a": phase21a,
-          "21b": phase21b, "21c": phase21c}
+          "21b": phase21b, "21c": phase21c, "22": phase22}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or PHASES:

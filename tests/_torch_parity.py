@@ -2,6 +2,11 @@
 JAX package on the CPU: both preconditioners from the same `Params`
 dict, matrix and test vector, and the comparisons the ROADMAP defines
 (identical plans; factors to 1e-10 relative in f64; equal M^{-1} b)."""
+import contextlib
+import os
+import shutil
+import time
+
 import numpy as np
 
 import jax.numpy as jnp
@@ -20,6 +25,52 @@ LEVEL_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
 # ten times as long.  Collection imports this module before any test
 # runs, so the setting holds for the whole process.
 torch.set_num_threads(1)
+
+
+def await_native_planners(timeout=120.0):
+    """Load both packages' native plan builders, waiting for a complete
+    library where another process is still writing it.
+
+    Each package compiles native/_planner.so with g++ at first use, in
+    place.  Under pytest-xdist several workers do so at once, and a
+    worker that loads the file while another's g++ still writes it
+    falls back to the Python planner for the rest of its life.  That
+    planner orders the plan maps differently (equivalent plans, not
+    identical ones), so a reference built on it fails every "identical
+    plans" comparison.  Collection imports this module in every worker
+    before any test runs, so the wait happens once per worker, before
+    either package builds a plan."""
+    if shutil.which("g++") is None:
+        return          # no compiler: both packages take the fallback
+    import hymls_tpu.native as ref_native
+    import hymls_tpu_torch.native as port_native
+    deadline = time.monotonic() + timeout
+    for mod in (ref_native, port_native):
+        while mod.planner() is None and time.monotonic() < deadline:
+            mod._PLANNER_TRIED = False      # load again once written
+            time.sleep(0.5)
+
+
+await_native_planners()
+
+
+@contextlib.contextmanager
+def no_plan_cache():
+    """The reference without its plan disk cache: it stores every plan
+    build slower than 5 s in a directory shared by all processes, and
+    its key does not say which planner (native or Python) built the
+    plan, so a loaded machine could hand one worker another's
+    differently ordered plans.  The empty string turns the cache off
+    (hymls_tpu/core/preconditioner.py:_plan_cache_key)."""
+    old = os.environ.get("HYMLS_PLAN_CACHE")
+    os.environ["HYMLS_PLAN_CACHE"] = ""
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HYMLS_PLAN_CACHE"]
+        else:
+            os.environ["HYMLS_PLAN_CACHE"] = old
 
 
 def rel(ref, got, floor=1e-300):
@@ -50,7 +101,9 @@ def pair(d, K, tv, dtype=torch.float64, d_ref=None, compute=True):
     """(reference, port) preconditioners of the same problem; `d_ref`
     where the reference needs other parameters than the port."""
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
-    Pj = H.Preconditioner(K, H.Params(d_ref or d), testvector=tv, dtype=jdt)
+    with no_plan_cache():
+        Pj = H.Preconditioner(K, H.Params(d_ref or d), testvector=tv,
+                              dtype=jdt)
     Pt = T.Preconditioner(K, T.Params(d), testvector=tv, dtype=dtype,
                           device="cpu")
     if compute:

@@ -1,6 +1,7 @@
 """hymls_tpu_torch imports without JAX, pins true-f32 products, and
 carries byte-identical copies of the JAX package's host modules."""
 import os
+import re
 import subprocess
 import sys
 
@@ -18,7 +19,10 @@ HOST_COPIES = ("config.py", "grid.py",
                "partition/skew.py", "partition/hierarchical.py",
                "core/plan.py",
                "native/__init__.py", "native/mmio.cpp",
-               "native/planner.cpp")
+               "native/planner.cpp",
+               "params_doc.py", "utils/__init__.py", "utils/io.py",
+               "utils/matrix.py", "utils/testing.py", "utils/malloc.py",
+               "utils/visualize.py", "utils/flops.py")
 
 
 def test_imports_without_jax():
@@ -35,6 +39,11 @@ def test_imports_without_jax():
         "import hymls_tpu_torch.solvers.deflation\n"
         "import hymls_tpu_torch.solvers.complex_solver\n"
         "import hymls_tpu_torch.solvers.eigen\n"
+        "import hymls_tpu_torch.driver, hymls_tpu_torch.matlab_bridge\n"
+        "import hymls_tpu_torch.utils.timings, hymls_tpu_torch.utils.io\n"
+        "import hymls_tpu_torch.utils.flops, hymls_tpu_torch.params_doc\n"
+        "import hymls_tpu_torch.utils.matrix, hymls_tpu_torch.utils.testing\n"
+        "import hymls_tpu_torch.utils.visualize\n"
         "assert not any(m == 'hymls_tpu' or m.startswith('hymls_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok')\n")
@@ -58,3 +67,19 @@ def test_host_copy_is_byte_identical(rel):
         ref = f.read()
     with open(os.path.join(ROOT, "hymls_tpu_torch", rel), "rb") as f:
         assert f.read() == ref
+
+
+def test_no_port_module_names_the_jax_package():
+    """No source file of the port imports hymls_tpu (its modules keep
+    their own copies of what they need)."""
+    pat = re.compile(r"^\s*(from|import)\s+hymls_tpu(\.|\s|$)", re.M)
+    pkg = os.path.join(ROOT, "hymls_tpu_torch")
+    found = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    if pat.search(fh.read()):
+                        found.append(os.path.relpath(path, ROOT))
+    assert found == []
