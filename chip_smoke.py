@@ -161,12 +161,36 @@ raises on failure (nonzero exit, no result line):
      here stokes32cube_skew_L2 is constructed again and must load them
      and build none; the host plan seconds of both, and the Newton step
      after the load held as phase 17 holds it (and beside phase 17's
-     count).
+     count);
+ 25. distributed (hymls_tpu_torch.parallel): 4 ranks spawned by
+     parallel/launch.run, all on cuda:0, exchanging over gloo through
+     host memory (one H100 takes one NCCL rank), each solve's
+     distributed path asserted active on every rank
+     (hymls_tpu_torch/tools/dist_cases.py holds the rank body):
+     (a) the cavity64_Re1000 IR newton_step with 'Distributed Apply'
+     and 'Structured Apply' False: true f64 relres <= 1e-11, inner f32
+     iterations within 2 of the replicated step run in the same phase
+     on the card and of the JAX package's CPU count at 4 devices;
+     (b) stokes128_L2 the same, held to 10% of the JAX CPU count as
+     phase 12; (c) f64 solves -- GMRES on cavity64, phase 9's bordered
+     solve, phase 18's deflated solve, phase 20's complex solve --
+     within 1 iteration of the replicated solves on the card; (d) the
+     halo V-cycle against the replicated generic apply and the
+     distributed factors against the replicated ones on cavity64 and
+     stokes128_L2 in f64 (1e-12 relative; whether exactly equal is
+     printed), with one apply's collective calls and bytes; (e) the
+     halo DIA matvec against K @ x at cavity64 (f64, f32) and stokes128
+     (f64), the DIA kernel launched on every rank.  Then a world-size-1
+     NCCL group on cuda:0 runs ppermute (to itself: a local copy),
+     psum and all_gather on device tensors; multi-rank NCCL needs two
+     or more cards and is not run.  The distributed step's seconds
+     beside the replicated one's are printed and labelled: 4 ranks
+     sharing one card over host staging is not a scaling number.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
 
-Each of the paths 4-6 and 8-24 (phase 8 once per apply, phase 10's
+Each of the paths 4-6 and 8-25 (phase 8 once per apply, phase 10's
 Newton solve and trace apart; in phases 20-21 the solves on ELL
 operators launch no DIA kernel and say so; phase 22 once per config;
 phase 23's server is another process, whose launches are not counted
@@ -274,6 +298,13 @@ ANCHOR_DRIVER = {
     "laplace1_eigs": [[21], [21]],
     "stokes2_3D": [[112, 113]]}
 ANCHOR_DRIVER_JDQR = [45, 46]
+# CPU anchors of the JAX package for phase 25 on a virtual mesh of 4
+# devices (tests/_torch_anchors.py 25; the port's CPU counts on 4 gloo
+# ranks are there too): inner f32 iterations of the distributed IR
+# Newton step on cavity64 and stokes128_L2 ('Structured Apply' False)
+ANCHOR_DIST_CAVITY64 = 76
+ANCHOR_DIST_STOKES128 = 115
+DIST_RANKS = 4
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
@@ -2091,6 +2122,131 @@ def plan_cache(d):
             os.environ["HYMLS_PLAN_CACHE"] = old
 
 
+def drive_distributed(device):
+    """Phase 25 (module docstring): 4 ranks on `device` over gloo, then
+    a world-size-1 NCCL group.  Returns the numbers."""
+    from hymls_tpu_torch.parallel import launch
+    from hymls_tpu_torch.tools import dist_cases
+
+    t0 = time.perf_counter()
+    out = launch.run(dist_cases.phase25, DIST_RANKS, backend="gloo",
+                     device=str(device), timeout_s=900)
+    t_run = time.perf_counter() - t0
+    r0 = out[0]
+    log(f"distributed: {DIST_RANKS} ranks on {r0['device']} over "
+        f"{r0['backend']} (host staging) in {t_run:.1f} s")
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"distributed: {what}")
+
+    rec = {"ranks": DIST_RANKS, "backend": "gloo", "run_s": t_run}
+    for part, tag, anchor, slack in (
+            ("a", "cavity64 IR newton_step", ANCHOR_DIST_CAVITY64, 2),
+            ("b", "stokes128_L2 IR newton_step", ANCHOR_DIST_STOKES128,
+             STOKES128_BAND * ANCHOR_STOKES128)):
+        d, rep = r0[part]["dist"], r0[part]["rep"]
+        log(f"distributed {tag}: inner f32 iterations {d['iters']} "
+            f"(replicated on the card {rep['iters']}, JAX CPU at "
+            f"{DIST_RANKS} devices {anchor}), true f64 relres "
+            f"{d['relres']:.3e} (replicated {rep['relres']:.3e}); "
+            f"{d['s']:.3f} s against {rep['s']:.3f} s replicated "
+            f"({DIST_RANKS} ranks sharing one H100 over gloo host "
+            f"staging; not a scaling number)")
+        for o in out:
+            check(o[part]["dist"]["dist_active"] and
+                  o[part]["dist"]["dcompute"],
+                  f"{tag}: the distributed path (and factorization) did "
+                  f"not run on rank {o['rank']}")
+            check(o[part]["dist"]["iters"] == d["iters"],
+                  f"{tag}: ranks disagree on the iterations")
+        check(d["shape"] == rep["shape"] and d["finite"] and
+              d["dtype"] == "torch.float64", f"{tag}: malformed solution")
+        check(d["relres"] <= RELRES_OK, f"{tag}: relres {d['relres']:.3e}")
+        if part == "a":
+            check(abs(d["iters"] - rep["iters"]) <= 2 and
+                  abs(d["iters"] - anchor) <= 2,
+                  f"{tag}: {d['iters']} inner iterations")
+        else:
+            check(abs(d["iters"] - ANCHOR_STOKES128) <= slack,
+                  f"{tag}: {d['iters']} inner iterations, not within "
+                  f"{STOKES128_BAND:.0%} of {ANCHOR_STOKES128}")
+        rec[part] = {"dist": d, "rep": rep, "jax_cpu": anchor}
+
+    c_tol = {"gmres_cavity64": ("relres", RELRES_OK),
+             "bordered_cavity64": ("relres", RELRES_OK),
+             "deflated_aniso128": ("relres", 5e-9),
+             "complex128": ("error", 1e-8)}
+    for name, (key, tol) in c_tol.items():
+        d, rep = r0["c"]["dist"][name], r0["c"]["rep"][name]
+        log(f"distributed f64 {name}: {d['iters']} iterations (replicated "
+            f"on the card {rep['iters']}), {key} {d[key]:.3e}")
+        for o in out:
+            check(o["c"]["dist"][name]["dist"],
+                  f"{name}: not distributed on rank {o['rank']}")
+        check(abs(d["iters"] - rep["iters"]) <= 1 and d[key] <= tol,
+              f"{name}: {d['iters']} iterations (replicated "
+              f"{rep['iters']}), {key} {d[key]:.3e}")
+        if name == "bordered_cavity64":
+            check(d["border_coeff"] <= 1e-8, f"{name}: border coefficients "
+                  f"{d['border_coeff']:.3e}")
+    rec["c"] = r0["c"]
+
+    for h in r0["d"]:
+        pa = h["per_apply"]
+        log(f"distributed {h['name']} f64: halo V-cycle vs replicated "
+            f"generic apply max rel {h['apply_rel']:.3e} (exactly equal "
+            f"{h['apply_exact']}; CUDA scatter-add and reduction orders "
+            f"need not match); distributed vs replicated factors max rel "
+            f"{h['factor_rel']:.3e} (exactly equal {h['factor_exact']}); "
+            f"per apply on rank 0: ppermute {pa['ppermute']['calls']} "
+            f"calls {pa['ppermute']['bytes']} B, all_gather "
+            f"{pa['all_gather']['calls']} call "
+            f"{pa['all_gather']['bytes']} B, psum {pa['psum']['calls']}; "
+            f"factorization: all_gather "
+            f"{h['compute_collectives']['all_gather']['calls']} call "
+            f"{h['compute_collectives']['all_gather']['bytes']} B, "
+            f"ppermute {h['compute_collectives']['ppermute']['calls']} "
+            f"calls {h['compute_collectives']['ppermute']['bytes']} B")
+        check(h["apply_rel"] <= 1e-12 and h["factor_rel"] <= 1e-12,
+              f"{h['name']}: halo apply {h['apply_rel']:.3e}, factors "
+              f"{h['factor_rel']:.3e}")
+        check(pa["all_gather"]["calls"] == 1 and pa["psum"]["calls"] == 0,
+              f"{h['name']}: {pa['all_gather']['calls']} all_gathers and "
+              f"{pa['psum']['calls']} psums in one apply")
+    rec["d"] = [{k: v for k, v in h.items()} for h in r0["d"]]
+
+    launches = 0
+    for name, e in r0["e"].items():
+        tol = 1e-6 if name.endswith("f32") else 1e-13
+        per_rank = [o["e"][name]["launches"] for o in out]
+        launches += sum(per_rank)
+        log(f"distributed halo DIA {name}: n={e['n']} bands={e['bands']} "
+            f"max rel {e['rel']:.3e} against K @ x; dia_spmv launches per "
+            f"rank {per_rank}")
+        check(e["rel"] <= tol, f"halo DIA {name}: {e['rel']:.3e}")
+        check(all(n > 0 for n in per_rank),
+              f"halo DIA {name}: a rank never launched dia_spmv")
+    rec["e"] = r0["e"]
+    rec["halo_dia_launches"] = launches
+
+    nc = launch.run(dist_cases.nccl_single, 1, backend="nccl",
+                    device=str(device), timeout_s=300)[0]
+    check(nc["ppermute"] == nc["x"] and nc["psum"] == nc["x"] and
+          nc["all_gather"] == nc["x"] and nc["devices"] == [str(device)],
+          f"NCCL world size 1: {nc}")
+    counts = {k: v for k, v in nc["counters"].items()
+              if k != "ppermute_words"}
+    log(f"NCCL world size 1 on {device}: ppermute (to itself, a local "
+        f"copy), psum and all_gather on device tensors agree; counters "
+        f"{counts}; multi-rank NCCL needs two or more cards and did not "
+        f"run here")
+    rec["nccl_world1"] = nc["counters"]
+    rec["total_s"] = time.perf_counter() - t0
+    log(f"phase 25 in {rec['total_s']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2249,7 +2405,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    # -- 25. distributed: 4 ranks on the card over gloo, NCCL at size 1 ------
+    reset_counts()
+    distributed = drive_distributed(device)
+
+    # the card again: a tool that keeps only the end of the output keeps it
+    log(f"total {time.perf_counter() - t_start:.1f} s on "
+        f"{gpu_name_and_power()}")
     main32 = dia["cavity64"]["f32"]
     sweep = {shape: {tag: {k: r[k] for k in (
         "device_us", "bound_us", "roofline_share", "library_us", "call_us",
@@ -2285,7 +2447,8 @@ def main(argv=None) -> int:
             "shift_invert": eigen["shift_invert"]["launches"],
             "driver": sum(driver[c]["launches"] for c in ANCHOR_DRIVER),
             **{f"driver_{c}": driver[c]["launches"] for c in ANCHOR_DRIVER},
-            "plan_cache_stokes32cube": cached["launches"]},
+            "plan_cache_stokes32cube": cached["launches"],
+            "halo_dia_4ranks": distributed["halo_dia_launches"]},
         "launches_per": {
             **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
             "bordered_solve": bordered["launches"],
@@ -2343,7 +2506,7 @@ def main(argv=None) -> int:
         "stokes32cube_skew_L2": stokes32, "deflated": deflated,
         "bordered_deflated": bordered_deflated, "complex": cplx,
         "eigen": eigen, "driver": driver, "bridge": bridge,
-        "plan_cache": cached}))
+        "plan_cache": cached, "distributed": distributed}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

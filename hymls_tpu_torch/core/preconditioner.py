@@ -1326,6 +1326,12 @@ class Preconditioner:
             write_matrix(paths[-1], M)
         return paths
 
+    def sharded_sapply_fn(self, mesh):
+        """The structured apply sharded over `mesh`, where the reference
+        takes it (hymls_tpu/core/preconditioner.py:sharded_sapply_fn):
+        not ported, so this raises (core/structured.py)."""
+        return self._structured.sharded_apply_fn(mesh)
+
     def apply_inverse_fn(self):
         """(apply_fn, factors, plans) with apply_fn(factors, plans, b)
         -> x, computing first when there are no factors yet: what a

@@ -1075,12 +1075,13 @@ class StructuredProgram:
         return self._exit_level(lev, out, c)
 
     def sharded_apply_fn(self, mesh, axis_name: Optional[str] = None):
-        """The multi-device structured apply of the reference
-        (box-grid axis sharded over a mesh) belongs to the port of
-        parallel/ and is not ported yet."""
+        """Not ported (ROADMAP M12's last item: the box-grid sharding's
+        rolls cross shards and need an exchange of their own); solvers
+        that would take it raise here.  Set 'Structured Apply' false."""
         raise NotImplementedError(
             "the sharded structured apply is not ported to hymls_tpu_torch "
-            "yet (ROADMAP M12)")
+            "yet (ROADMAP M12, its last item); set 'Structured Apply' to "
+            "false for the distributed halo V-cycle")
 
     def _exit_level(self, lev, out, c):
         L = self.levels[lev]

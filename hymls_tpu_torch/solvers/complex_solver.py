@@ -1,17 +1,19 @@
 """Complex solves with a real preconditioner.
 
-Torch counterpart of the replicated parts of
-hymls_tpu/solvers/complex_solver.py, the behavioural equivalent of the
-reference's ComplexSolver / ComplexVector / ComplexOperator
-(reference src/HYMLS_ComplexSolver.cpp, HYMLS_ComplexVector.cpp,
-HYMLS_ComplexOperator.cpp): systems (A + i B) z = b, e.g.
-complex-shifted Jacobians A - sigma M inside eigenvalue computations,
-are solved by GMRES in genuine complex arithmetic, while the multilevel
-preconditioner (which is real) is applied separately to the real and
-imaginary parts.
+Torch counterpart of hymls_tpu/solvers/complex_solver.py, the
+behavioural equivalent of the reference's ComplexSolver / ComplexVector
+/ ComplexOperator (reference src/HYMLS_ComplexSolver.cpp,
+HYMLS_ComplexVector.cpp, HYMLS_ComplexOperator.cpp): systems (A + i B) z
+= b, e.g. complex-shifted Jacobians A - sigma M inside eigenvalue
+computations, are solved by GMRES in genuine complex arithmetic, while
+the multilevel preconditioner (which is real) is applied separately to
+the real and imaginary parts.
 
 The GMRES of solvers/krylov.py is dtype-generic: complex vectors,
-conjugated Gram-Schmidt and complex-safe Givens rotations.
+conjugated Gram-Schmidt and complex-safe Givens rotations. Under
+'Distributed Apply' with a mesh the iteration runs owner-sharded
+(parallel/dist.py): A and B each on their own exchange plan, the real
+halo V-cycle on the real and imaginary parts.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ import torch
 from ..config import Params
 from ..core.preconditioner import Preconditioner
 from ..ops.spmv import EllOperator
+from ..parallel.dist import make_distributed_solve
+from ..parallel.halo_vcycle import UnshardableError
+from ..parallel.mesh import get_mesh
 from . import krylov
 
 
@@ -62,9 +67,15 @@ class ComplexSolver:
         it = slist.sublist("Iterative Solver")
         self.maxiter = it.get("Maximum Iterations", 100)
         self.tol = it.get("Convergence Tolerance", 1e-8)
-        # 'Distributed Apply': see Solver; there is no mesh here, so the
-        # first solve warns and takes the replicated apply
+        # 'Distributed Apply': the complex GMRES in the owner-sharded
+        # halo layout over the active mesh (reference ComplexSolver over
+        # distributed Epetra vectors, src/HYMLS_ComplexSolver.hpp);
+        # without a mesh, or unshardable, the replicated apply (with a
+        # warning), as in Solver
         self.distributed = slist.get("Distributed Apply", False)
+        self._A = A.tocsr()
+        self._B = None if B is None else B.tocsr()
+        self._dist = None
         self._border = None
 
     def set_border(self, V, W=None, C=None):
@@ -86,15 +97,92 @@ class ComplexSolver:
         # against a complex vector
         self._border = tuple(torch.as_tensor(a, device=self.device)
                              .to(self.dtype) for a in (V, W, C))
+        # the halo apply stacks the factors it was built with
+        self._dist = None
         return self
 
     def _make_dist(self):
-        """No mesh is ever active here: warn, switch the option off and
-        take the replicated apply (mirrors Solver._make_dist)."""
-        warnings.warn("'Distributed Apply' requested but no device mesh "
-                      "is active; using the replicated apply")
-        self.distributed = False
-        return None
+        """This rank's owner-sharded plans over the active mesh, or None
+        with a warning (mirrors Solver._make_dist)."""
+        if self._dist is not None:
+            return self._dist
+        mesh = get_mesh()
+        if mesh is None or mesh.size < 2:
+            warnings.warn("'Distributed Apply' requested but no device "
+                          "mesh is active (parallel.set_mesh); using the "
+                          "replicated apply")
+            self.distributed = False
+            return None
+        if self.precond._factors is None:
+            self.precond.compute()
+        try:
+            self._dist = make_distributed_solve(self._A, self.precond, mesh)
+        except UnshardableError as e:
+            warnings.warn(f"'Distributed Apply' unavailable ({e}); "
+                          "using the replicated apply")
+            self.distributed = False
+            return None
+        self._dist_B = None if self._B is None else \
+            self._dist.make_extra_matvec(self._B)
+        return self._dist
+
+    def _solve_dist(self, dist, b):
+        """The complex GMRES in the owner layout (reference
+        complex_solver.py:_build_dist): (A + iB) z by the two exchange
+        matvecs on complex vectors, the real halo V-cycle on the real
+        and imaginary parts; with a border the augmented layout of
+        dist.make_aug, as in the real bordered solve.  Returns the
+        result with the global z ([z; s] with a border)."""
+        pvA = dist.prepare(self.opA.vals)
+        pvB = None if self._B is None else self._dist_B[0](self.opB.vals)
+        fac_st = dist.stack_factors(
+            self.precond._prune_factors(self.precond.factors))
+        cd = self.dtype
+
+        def mv(z):
+            y = dist.matvec(pvA, z)
+            if pvB is not None:
+                y = y + 1j * self._dist_B[1](pvB, z)
+            return y.to(cd)
+
+        def vcycle(z):
+            zr, zi = real_imag(z)
+            return torch.complex(dist.precond(fac_st, zr),
+                                 dist.precond(fac_st, zi)).to(cd)
+
+        kw = dict(tol=self.tol, maxiter=self.maxiter, left=False,
+                  allreduce=dist.allreduce)
+        bz = dist.scatter(b)
+        if self._border is None:
+            res = krylov.gmres(mv, bz, torch.zeros_like(bz), vcycle, **kw)
+            return res._replace(x=dist.gather(res.x))
+
+        if "border" not in fac_st["levels"][0]:
+            raise RuntimeError("the distributed bordered solve needs the "
+                               "bordered factors")
+        V, W, C = self._border
+        m = V.shape[1]
+        aug = dist.make_aug(m)
+        V_l, W_l = aug.scatter_cols(V), aug.scatter_cols(W)
+        bord = dist.app.apply_local_bordered
+
+        def opz(z):
+            x_l, s = aug.split(z)
+            tau = dist.allreduce(W_l.T.conj() @ x_l) + C @ s
+            return aug.join(mv(x_l) + V_l @ s, tau)
+
+        def precz(z):
+            x_l, s = aug.split(z)
+            (xr, xi), (sr, si) = real_imag(x_l), real_imag(s)
+            xr, sr = bord(xr, sr, fac_st)
+            xi, si = bord(xi, si, fac_st)
+            return aug.join(torch.complex(xr, xi).to(cd),
+                            torch.complex(sr, si).to(cd))
+
+        res = krylov.gmres(opz, aug.join(bz, bz.new_zeros(m)),
+                           torch.zeros(bz.shape[0] + m, dtype=cd,
+                                       device=bz.device), precz, **kw)
+        return res._replace(x=torch.cat(aug.gather_aug(res.x)))
 
     def _matvec(self, pvA, pvB, x):
         """(A + iB) x on the prepared values."""
@@ -111,9 +199,11 @@ class ComplexSolver:
         system with a zero border right-hand side; returns
         (z, KrylovResult)."""
         apply_fn, factors, dplans = self.precond.apply_inverse_fn()
-        if self.distributed:
-            self._make_dist()
+        dist = self._make_dist() if self.distributed else None
         b = torch.as_tensor(b, device=self.device).to(self.dtype)
+        if dist is not None:
+            res = self._solve_dist(dist, b)
+            return res.x[:self.opA.n], res
         pvA = self.opA.prepare(self.opA.vals)
         pvB = None if self.opB is None else self.opB.prepare(self.opB.vals)
         tol, maxiter = self.tol, self.maxiter

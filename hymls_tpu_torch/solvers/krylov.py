@@ -16,6 +16,15 @@ the right-hand side with scale_with_rhs=True.
 
 The loops are Python `while` loops: each iteration reads its residual
 on the host once (one device synchronisation per iteration on CUDA).
+
+`allreduce` (a function that sums a tensor over the ranks of a mesh,
+parallel/dist.py's `DistributedSolve.allreduce`) runs a loop on
+owner-sharded vectors: every dot, norm and Gram-Schmidt projection is
+the rank-local product completed by one reduction (per CGS2 pass: one
+local GEMV, then one reduction of the coefficient vector), and every
+branch and host read (convergence, the Givens rotations, restarts)
+comes from reduced values only, so that all ranks take the same path.
+Without it the loops are the single-process ones.
 """
 from __future__ import annotations
 
@@ -34,6 +43,23 @@ class KrylovResult(NamedTuple):
 _REAL_OF = {torch.complex128: torch.float64, torch.complex64: torch.float32}
 
 
+def _reductions(allreduce):
+    """(norm, mv, dot) for the loops: the plain torch functions, or
+    their rank-local versions completed by `allreduce`."""
+    if allreduce is None:
+        return torch.linalg.norm, torch.mv, torch.dot
+
+    def norm(v):
+        return torch.sqrt(allreduce(torch.sum((v.conj() * v).real)))
+
+    def mv(A, w):
+        return allreduce(torch.mv(A, w))
+
+    def dot(a, b):
+        return allreduce(torch.dot(a, b))
+    return norm, mv, dot
+
+
 def _as_dtype(v: float, dtype) -> float:
     """A Python scalar rounded to `dtype` (to its real type, for a
     complex one), so that host comparisons match the reference's
@@ -45,7 +71,7 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
           prec: Optional[Callable] = None, *, tol: float = 1e-8,
           maxiter: int = 100, left: bool = False,
           scale_with_rhs: bool = False, restart: Optional[int] = None,
-          _scale=None) -> KrylovResult:
+          allreduce: Optional[Callable] = None, _scale=None) -> KrylovResult:
     """Preconditioned GMRES.
 
     op/prec: closures x -> A x and x -> M^{-1} x.
@@ -55,12 +81,15 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     >= maxiter runs full GMRES.  With a restart, cycles of `restart`
     iterations run until convergence or until `maxiter` iterations
     have been spent (the cycle under way runs to its end).
+    allreduce: the sum over the ranks, for owner-sharded vectors (see
+    the module docstring).
     _scale: a restart cycle's convergence scale, that of the whole
     solve."""
     if restart is not None and restart < maxiter:
         return _gmres_restarted(op, b, x0, prec, tol=tol, maxiter=maxiter,
                                 left=left, scale_with_rhs=scale_with_rhs,
-                                restart=restart)
+                                restart=restart, allreduce=allreduce)
+    norm, project, _ = _reductions(allreduce)
     n = b.shape[0]
     dtype = b.dtype
     m = maxiter
@@ -75,13 +104,13 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     r0 = b - op(x0)
     if left:
         r0 = prec(r0)
-    beta = torch.linalg.norm(r0)
+    beta = norm(r0)
     if _scale is not None:
         # restart cycles measure convergence against the scale of the
         # whole solve, not their own cycle-initial residual
         scale = _scale
     elif scale_with_rhs:
-        scale = torch.linalg.norm(prec(b) if left else b)
+        scale = norm(prec(b) if left else b)
     else:
         scale = beta
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
@@ -111,11 +140,11 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
         # conj() of a real tensor is the tensor itself
         Vk = V[:k + 1]
         Vc = Vk.conj()
-        h1 = torch.mv(Vc, w)
+        h1 = project(Vc, w)
         w = w - torch.mv(Vk.T, h1)
-        h2 = torch.mv(Vc, w)
+        h2 = project(Vc, w)
         w = w - torch.mv(Vk.T, h2)
-        hk1 = torch.linalg.norm(w).to(dtype)
+        hk1 = norm(w).to(dtype)
         V[k + 1] = torch.where(torch.abs(hk1) > 0, w / hk1, w)
 
         col = torch.zeros(m + 1, dtype=dtype, device=b.device)
@@ -159,26 +188,27 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
 
 
 def _gmres_restarted(op, b, x0, prec, *, tol, maxiter, left,
-                     scale_with_rhs, restart) -> KrylovResult:
+                     scale_with_rhs, restart, allreduce=None) -> KrylovResult:
     """Restart loop around fixed-basis GMRES cycles, on the host.  The
     convergence scale is fixed once for the whole solve (Belos scales
     by the solve's initial residual or right-hand side, never by a
     cycle's restart residual: otherwise every cycle would need the full
     relative reduction on its own)."""
+    norm = _reductions(allreduce)[0]
     r0 = b - op(x0)
     if left and prec is not None:
         r0 = prec(r0)
     if scale_with_rhs:
-        scale0 = torch.linalg.norm(
-            prec(b) if (left and prec is not None) else b)
+        scale0 = norm(prec(b) if (left and prec is not None) else b)
     else:
-        scale0 = torch.linalg.norm(r0)
+        scale0 = norm(r0)
     scale0 = torch.where(scale0 > 0, scale0, torch.ones_like(scale0))
 
     x, k, res, done = x0, 0, float("inf"), False
     while not done and k < maxiter:
         inner = gmres(op, b, x, prec, tol=tol, maxiter=restart, left=left,
-                      scale_with_rhs=scale_with_rhs, _scale=scale0)
+                      scale_with_rhs=scale_with_rhs, allreduce=allreduce,
+                      _scale=scale0)
         x, k, res, done = inner.x, k + inner.iters, inner.relres, \
             inner.converged
     return KrylovResult(x=x, iters=k, relres=res, converged=done)
@@ -186,33 +216,36 @@ def _gmres_restarted(op, b, x0, prec, *, tol, maxiter, left,
 
 def cg(op: Callable, b: torch.Tensor, x0: torch.Tensor,
        prec: Optional[Callable] = None, *, tol: float = 1e-8,
-       maxiter: int = 100, scale_with_rhs: bool = False) -> KrylovResult:
+       maxiter: int = 100, scale_with_rhs: bool = False,
+       allreduce: Optional[Callable] = None) -> KrylovResult:
     """Preconditioned conjugate gradients.  Works on negative-definite
     systems too (the CG formulas are invariant under a simultaneous
-    sign flip of the operator and the preconditioner)."""
+    sign flip of the operator and the preconditioner).  `allreduce` as
+    in `gmres`."""
+    norm, _, dot = _reductions(allreduce)
     if prec is None:
         prec = lambda x: x   # noqa: E731
     tol = _as_dtype(tol, b.dtype)
 
     r = b - op(x0)
     z = prec(r)
-    scale = torch.linalg.norm(b) if scale_with_rhs else torch.linalg.norm(r)
+    scale = norm(b) if scale_with_rhs else norm(r)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     x, p = x0, z
-    res = float(torch.linalg.norm(r) / scale)
+    res = float(norm(r) / scale)
     done = res <= tol
     k = 0
     while k < maxiter and not done:
         Ap = op(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = prec(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
-        res = float(torch.linalg.norm(r) / scale)
+        res = float(norm(r) / scale)
         done = res <= tol
     return KrylovResult(x=x, iters=k, relres=res, converged=done)

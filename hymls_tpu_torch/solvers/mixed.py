@@ -7,7 +7,9 @@ f32, while the residual and the solution accumulate in f64: each pass
 solves for the correction of the f64 residual to a loose, adaptive
 inner tolerance, and the refinement loop carries the result to the
 outer tolerance.  The f64 residual goes through an f64 DiaOperator, so
-the DIA kernel runs in f64 as well as in f32.
+the DIA kernel runs in f64 as well as in f32.  Under 'Distributed Apply'
+with a mesh the whole Newton step runs owner-sharded (`refine_dist`,
+reference mixed.py:219-296).
 """
 from __future__ import annotations
 
@@ -59,6 +61,13 @@ class IterativeRefinementSolver:
         # factors, for matrices that cancel beyond f32 range
         fprec = params.sublist("Preconditioner").get("Factor Precision",
                                                      "Same")
+        # the distributed factorization (parallel/dist_compute.py)
+        # implements the full-f64 chain: pin the replicated build to the
+        # same assembly, so that distributed and replicated steps agree
+        if params.sublist("Solver").get("Distributed Apply", False) and \
+                "Schur Assembly" not in params.sublist("Preconditioner"):
+            inner_params.sublist("Preconditioner")[
+                "Schur Assembly"] = "Full f64"
         self.precond = Preconditioner(
             K, inner_params, testvector=testvector, dtype=torch.float32,
             factor_dtype=torch.float64 if fprec == "f64" else torch.float32,
@@ -125,12 +134,71 @@ class IterativeRefinementSolver:
         return KrylovResult(x=x, iters=iters, relres=rel,
                             converged=rel <= self.tol)
 
+    def _dist(self):
+        """This rank's distributed operator and apply pair under
+        'Distributed Apply' (Solver._make_dist), or None.  Where the
+        reference would shard the structured apply over the mesh, this
+        raises (core/structured.py)."""
+        if not self.solver.distributed:
+            return None
+        self.solver._check_structured_dist()
+        return self.solver._make_dist()
+
+    def refine_dist(self, dist, vals64, vals32, fac_st, b) -> KrylovResult:
+        """`refine` in the owner layout (reference mixed.py:
+        _build_fused_dist): f32 inner GMRES on the halo matvec and halo
+        V-cycle, the f64 residual through the same exchange matvec, and
+        every norm a psum, so that all ranks take the same passes.
+        Returns the result with the global x."""
+        pv64, pv32 = dist.prepare(vals64), dist.prepare(vals32)
+        cg = self.solver.method == "CG"
+        b_l = dist.scatter(b)
+        nb = float(dist.norm(b_l))
+        nb = nb if nb > 0 else 1.0
+
+        def op(x):
+            return dist.matvec(pv32, x)
+
+        def prec(x):
+            return dist.precond(fac_st, x)
+
+        x = torch.zeros_like(b_l)
+        r = b_l
+        rel = float(dist.norm(r)) / nb
+        iters = passes = 0
+        while rel > self.tol and passes < self.max_passes:
+            tol_k = float(np.float32(np.clip(0.3 * self.tol / rel,
+                                             self.inner_tol, 0.3)))
+            r32 = r.to(torch.float32)
+            x32 = torch.zeros_like(r32)
+            kw = dict(tol=tol_k, maxiter=self.inner_maxiter,
+                      allreduce=dist.allreduce)
+            res = krylov.cg(op, r32, x32, prec, **kw) if cg else \
+                krylov.gmres(op, r32, x32, prec, **kw)
+            x = x + res.x.to(torch.float64)
+            r = b_l - dist.matvec(pv64, x)
+            rel = float(dist.norm(r)) / nb
+            iters += res.iters
+            passes += 1
+        return KrylovResult(x=dist.gather(x), iters=iters, relres=rel,
+                            converged=rel <= self.tol)
+
     def newton_step(self, vals64, vals32, b) -> KrylovResult:
         """One Newton step: f32 re-factorization from the f64 values,
         the structured repack when that apply is active, then the
         refinement solve (the counterpart of the reference's
-        `newton_step_fn` program)."""
+        `newton_step_fn` program).  Distributed: the factorization of
+        parallel/dist_compute.py straight into `refine_dist`."""
         P = self.precond
+        dist = self._dist()
+        if dist is not None:
+            b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
+            fac_st = dist.compute(vals64) if dist.dcompute is not None \
+                else dist.stack_factors(P._prune_factors(
+                    P.compute_fn(vals64, P._dplans, P._extra_plan)))
+            res = self.refine_dist(dist, vals64, vals32, fac_st, b)
+            self._last_result = res
+            return res
         factors = P.apply_factors_from(P.compute_fn(vals64, P._dplans,
                                                     P._extra_plan))
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
@@ -147,19 +215,33 @@ class IterativeRefinementSolver:
         (KrylovResult, factors) with the unpruned factor tree for the
         next step."""
         P = self.precond
+        dist = self._dist()
         factors = P.compute_fn(vals64, P._dplans, P._extra_plan, prev=prev)
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        res = self.refine(vals64, vals32, P.apply_factors_from(factors),
-                          P._aplans, b)
+        if dist is not None:
+            # the distributed solve around the replicated warm recompute
+            res = self.refine_dist(
+                dist, vals64, vals32,
+                dist.stack_factors(P._prune_factors(factors)), b)
+        else:
+            res = self.refine(vals64, vals32, P.apply_factors_from(factors),
+                              P._aplans, b)
         self._last_result = res
         return res, factors
 
     def solve(self, b):
         """Refinement solve with the current factors; returns x."""
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        res = self.refine(self.op64.vals, self.solver.op.vals,
-                          self.precond.apply_factors, self.precond._aplans,
-                          b)
+        dist = self._dist()
+        if dist is not None:
+            res = self.refine_dist(
+                dist, self.op64.vals, self.solver.op.vals,
+                dist.stack_factors(self.precond._prune_factors(
+                    self.precond.factors)), b)
+        else:
+            res = self.refine(self.op64.vals, self.solver.op.vals,
+                              self.precond.apply_factors,
+                              self.precond._aplans, b)
         self._last_result = res
         return res.x
 

@@ -1,12 +1,14 @@
-"""CPU anchors of chip_smoke.py's phases 18-22: the deflated, complex
-and eigenvalue solves and the driver's configs at the sizes that script
-runs on the card, through the JAX package and through the port on the
-CPU.
+"""CPU anchors of chip_smoke.py's phases 18-22 and 25: the deflated,
+complex and eigenvalue solves, the driver's configs and the distributed
+solves at the sizes that script runs on the card, through the JAX
+package and through the port on the CPU.
 
     JAX_PLATFORMS=cpu python tests/_torch_anchors.py [phase ...]
 
 prints one line per case and package (iterations, residuals, counts);
-phases are 18, 19, 20, 21a, 21b, 21c, 22 (default: all).  The numbers go
+phases are 18, 19, 20, 21a, 21b, 21c, 22, 25 (default: all).  Phase 25
+runs the JAX package on a virtual mesh of 4 CPU devices and the port on
+4 gloo ranks (parallel/launch.run).  The numbers go
 into chip_smoke.py's ANCHOR_* constants and PERF.md section 4.
 """
 import os
@@ -248,8 +250,106 @@ def phase22():
         both(run)
 
 
+def phase25(ndev=4):
+    """The distributed solves of chip_smoke.py phase 25 (a-c), at ndev
+    ranks; hymls_tpu_torch/tools/dist_cases.py holds the cases."""
+    from hymls_tpu.parallel.mesh import make_mesh, set_mesh
+    from hymls_tpu.solvers.mixed import IterativeRefinementSolver as JIR
+    from hymls_tpu_torch.parallel import launch
+    from hymls_tpu_torch.stencils import create_nullspace
+    from hymls_tpu_torch.tools import dist_cases as dc
+    import jax
+    import jax.numpy as jnp
+
+    def jax_newton(K, b, d):
+        params = H.Params(d)
+        S = JIR(K, params, testvector=create_testvector(params, K))
+        S.compute()
+        fn, dpl, ex, apl = S.newton_step_fn()
+        r = jax.device_get(fn(S.op64.vals, S.solver.op.vals, dpl, ex, apl,
+                              jnp.asarray(b, jnp.float64)))
+        return (f"{int(r.iters)} inner iterations, relres "
+                f"{relres(K, np.asarray(r.x), b):.2e}, distributed "
+                f"{S._dist is not None}")
+
+    def jax_solver(K, d, b, border=None):
+        params = H.Params(d)
+        P = H.Preconditioner(K, params,
+                             testvector=create_testvector(params, K))
+        S = H.Solver(K, P, params)
+        if border is not None:
+            S.set_border(border)
+        x, res = S.apply_inverse(b)
+        return (f"{int(res.iters)} iterations, relres "
+                f"{relres(K, np.asarray(x), b):.2e}, distributed "
+                f"{S._dist is not None}")
+
+    def jax_deflated():
+        K, b = dc.aniso_matrix()
+        params = H.Params(dc.laplace_dict(
+            2, True, solver={"Deflated Subspace Dimension": 8}))
+        P = H.Preconditioner(K, params,
+                             testvector=create_testvector(params, K)).compute()
+        S = H.Solver(K, P, params)
+        S.setup_deflation()
+        x, res = S.apply_inverse(b)
+        return (f"{int(res.iters)} iterations, relres "
+                f"{relres(K, np.asarray(x), b):.2e}, distributed "
+                f"{S._dist is not None}")
+
+    def jax_complex():
+        A, B, b, z_ex = dc.complex_case()
+        params = H.Params(dc.laplace_dict(1, True))
+        P = H.Preconditioner(A, params,
+                             testvector=create_testvector(params, A)).compute()
+        CS = JCS(A, P, params, B=B)
+        z, res = CS.apply_inverse(b)
+        z = np.asarray(z)
+        return (f"{int(res.iters)} iterations, error "
+                f"{np.linalg.norm(z - z_ex) / np.linalg.norm(z_ex):.2e}, "
+                f"distributed {CS._dist is not None}")
+
+    K, b = dc.cavity64_matrix()
+    K128, b128 = dc.stokes128_matrix(T.Params)
+    ns = create_nullspace(T.Params(dc.bordered_dict()), K.shape[0])
+    jax_cases = {
+        "a cavity64 IR newton_step": lambda: jax_newton(
+            K, b, dc.cavity64_dict(True)),
+        "b stokes128_L2 IR newton_step": lambda: jax_newton(
+            K128, b128, dc.cavity64_dict(True, 2, 128)),
+        "c gmres_cavity64": lambda: jax_solver(K, dc.cavity64_dict(True),
+                                               b),
+        "c bordered_cavity64": lambda: jax_solver(
+            K, dc.bordered_dict(True), dc.bordered_rhs(K, ns), border=ns),
+        "c deflated_aniso128": jax_deflated,
+        "c complex128": jax_complex}
+    print(f"25 distributed: the JAX package on {ndev} virtual CPU devices")
+    set_mesh(make_mesh(ndev))
+    try:
+        for name, fn in jax_cases.items():
+            t0 = time.perf_counter()
+            print(f"  jax  {name}: {fn()}  "
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    finally:
+        set_mesh(None)
+    print(f"25 distributed: the port on {ndev} gloo CPU ranks")
+    t0 = time.perf_counter()
+    out = launch.run(dc.phase25, ndev, backend="gloo", device="cpu",
+                     args=(("a", "b", "c"),), timeout_s=3000)[0]
+    for part, tag in (("a", "cavity64 IR newton_step"),
+                      ("b", "stokes128_L2 IR newton_step")):
+        for side in ("dist", "rep"):
+            r = out[part][side]
+            print(f"  port {part} {tag} {side}: {r['iters']} inner "
+                  f"iterations, relres {r['relres']:.2e}")
+    for side in ("dist", "rep"):
+        for name, r in out["c"][side].items():
+            print(f"  port c {name} {side}: {r}")
+    print(f"  [{time.perf_counter() - t0:.1f} s]")
+
+
 PHASES = {"18": phase18, "19": phase19, "20": phase20, "21a": phase21a,
-          "21b": phase21b, "21c": phase21c, "22": phase22}
+          "21b": phase21b, "21c": phase21c, "22": phase22, "25": phase25}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or PHASES:

@@ -44,6 +44,16 @@ def test_imports_without_jax():
         "import hymls_tpu_torch.utils.flops, hymls_tpu_torch.params_doc\n"
         "import hymls_tpu_torch.utils.matrix, hymls_tpu_torch.utils.testing\n"
         "import hymls_tpu_torch.utils.visualize\n"
+        "import hymls_tpu_torch.parallel.mesh\n"
+        "import hymls_tpu_torch.parallel.collectives\n"
+        "import hymls_tpu_torch.parallel.launch\n"
+        "import hymls_tpu_torch.parallel.halo\n"
+        "import hymls_tpu_torch.parallel.vcycle\n"
+        "import hymls_tpu_torch.parallel.halo_vcycle\n"
+        "import hymls_tpu_torch.parallel.dist_compute\n"
+        "import hymls_tpu_torch.parallel.dist\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist\n"
         "assert not any(m == 'hymls_tpu' or m.startswith('hymls_tpu.')\n"
         "               for m in sys.modules)\n"
         "print('ok')\n")
@@ -74,12 +84,22 @@ def test_no_port_module_names_the_jax_package():
     their own copies of what they need)."""
     pat = re.compile(r"^\s*(from|import)\s+hymls_tpu(\.|\s|$)", re.M)
     pkg = os.path.join(ROOT, "hymls_tpu_torch")
+    paths = [os.path.join(dirpath, f)
+             for dirpath, _, files in os.walk(pkg)
+             for f in files if f.endswith(".py")]
+    assert os.path.join(pkg, "parallel", "dist.py") in paths
     found = []
-    for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(dirpath, f)
-                with open(path) as fh:
-                    if pat.search(fh.read()):
-                        found.append(os.path.relpath(path, ROOT))
+    for path in paths:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                found.append(os.path.relpath(path, ROOT))
     assert found == []
+
+
+def test_distributed_rank_bodies_import_neither_jax_nor_the_jax_package():
+    """tests/_torch_dist.py, which every spawned rank imports, names
+    neither jax nor hymls_tpu."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|hymls_tpu)(\.|\s|$)",
+                     re.M)
+    with open(os.path.join(ROOT, "tests", "_torch_dist.py")) as fh:
+        assert not pat.search(fh.read())
