@@ -185,12 +185,29 @@ raises on failure (nonzero exit, no result line):
      psum and all_gather on device tensors; multi-rank NCCL needs two
      or more cards and is not run.  The distributed step's seconds
      beside the replicated one's are printed and labelled: 4 ranks
-     sharing one card over host staging is not a scaling number.
+     sharing one card over host staging is not a scaling number;
+ 26. the sharded structured apply, on the same 4 ranks in the same
+     spawn as phase 25 (core/structured.py ShardedApply;
+     hymls_tpu_torch/tools/dist_cases.py phase26): (a) the
+     cavity64_Re1000 IR newton_step with 'Distributed Apply' and
+     'Structured Apply' "Auto" (bench.py's parameters), which must
+     take the sharded structured apply on every rank (not the halo
+     V-cycle): every rank the same inner f32 iterations, within 2 of
+     the replicated structured step run in the same phase on the card
+     and of the JAX package's CPU count at 4 devices, true f64 relres
+     <= 1e-11, the DIA kernel launched on every rank; (b) stokes128_L2
+     the same, held to 10% of the JAX CPU count as phase 12; (c) on
+     cavity64 and stokes128_L2 in f64, one sharded apply against the
+     replicated structured apply (1e-12 relative; whether exactly
+     equal is printed), its ppermute and all_gather calls and bytes
+     equal to those the design states (ShardedApply.traffic).  The
+     sharded and replicated step times are printed beside phase 25's
+     halo step, with the same label.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
 
-Each of the paths 4-6 and 8-25 (phase 8 once per apply, phase 10's
+Each of the paths 4-6 and 8-26 (phase 8 once per apply, phase 10's
 Newton solve and trace apart; in phases 20-21 the solves on ELL
 operators launch no DIA kernel and say so; phase 22 once per config;
 phase 23's server is another process, whose launches are not counted
@@ -304,6 +321,11 @@ ANCHOR_DRIVER_JDQR = [45, 46]
 # Newton step on cavity64 and stokes128_L2 ('Structured Apply' False)
 ANCHOR_DIST_CAVITY64 = 76
 ANCHOR_DIST_STOKES128 = 115
+# CPU anchors of the JAX package for phase 26 on a virtual mesh of 4
+# devices (tests/_torch_anchors.py 26): inner f32 iterations of the IR
+# Newton step on the sharded structured apply, cavity64 and stokes128_L2
+ANCHOR_SHARDED_CAVITY64 = 75
+ANCHOR_SHARDED_STOKES128 = 115
 DIST_RANKS = 4
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2129,7 +2151,7 @@ def drive_distributed(device):
     from hymls_tpu_torch.tools import dist_cases
 
     t0 = time.perf_counter()
-    out = launch.run(dist_cases.phase25, DIST_RANKS, backend="gloo",
+    out = launch.run(dist_cases.phases25_26, DIST_RANKS, backend="gloo",
                      device=str(device), timeout_s=900)
     t_run = time.perf_counter() - t0
     r0 = out[0]
@@ -2244,6 +2266,87 @@ def drive_distributed(device):
     rec["nccl_world1"] = nc["counters"]
     rec["total_s"] = time.perf_counter() - t0
     log(f"phase 25 in {rec['total_s']:.1f} s")
+    rec["sharded"] = check_sharded([o["26"] for o in out], rec["a"]["dist"])
+    return rec
+
+
+def check_sharded(out, halo):
+    """Phase 26's gates (module docstring) on every rank's record of
+    dist_cases.phase26; `halo` is phase 25's distributed cavity64 step,
+    whose time is printed beside the sharded one's."""
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"sharded structured: {what}")
+
+    r0 = out[0]
+    rec = {}
+    for part, tag, anchor, slack in (
+            ("a", "cavity64 IR newton_step", ANCHOR_SHARDED_CAVITY64, 2),
+            ("b", "stokes128_L2 IR newton_step", ANCHOR_SHARDED_STOKES128,
+             STOKES128_BAND * ANCHOR_STOKES128)):
+        d, rep = r0[part]["dist"], r0[part]["rep"]
+        per_rank = [o[part]["dist"]["launches"] for o in out]
+        log(f"sharded structured {tag}: inner f32 iterations {d['iters']} "
+            f"(replicated structured on the card {rep['iters']}, JAX CPU at "
+            f"{DIST_RANKS} devices {anchor}), true f64 relres "
+            f"{d['relres']:.3e} (replicated {rep['relres']:.3e}); "
+            f"{d['s']:.3f} s against {rep['s']:.3f} s replicated"
+            + (f" and {halo['s']:.3f} s on the halo V-cycle (phase 25)"
+               if part == "a" else "")
+            + f" ({DIST_RANKS} ranks sharing one H100 over gloo host "
+            f"staging; not a scaling number); dia_spmv launches per rank "
+            f"{per_rank}")
+        for o in out:
+            od = o[part]["dist"]
+            check(od["sharded"] and not od["dist_active"] and
+                  od["structured"], f"{tag}: rank {o['rank']} did not run "
+                  f"the sharded structured apply")
+            check(od["iters"] == d["iters"],
+                  f"{tag}: ranks disagree on the iterations")
+            check(od["launches"] > 0,
+                  f"{tag}: rank {o['rank']} never launched dia_spmv")
+        check(rep["structured"], f"{tag}: the replicated step is not on the "
+              f"structured apply")
+        check(d["shape"] == rep["shape"] and d["finite"] and
+              d["dtype"] == "torch.float64", f"{tag}: malformed solution")
+        check(d["relres"] <= RELRES_OK, f"{tag}: relres {d['relres']:.3e}")
+        if part == "a":
+            check(abs(d["iters"] - rep["iters"]) <= 2 and
+                  abs(d["iters"] - anchor) <= 2,
+                  f"{tag}: {d['iters']} inner iterations")
+        else:
+            check(abs(d["iters"] - anchor) <= slack,
+                  f"{tag}: {d['iters']} inner iterations, not within "
+                  f"{STOKES128_BAND:.0%} of {anchor}")
+        rec[part] = {"dist": d, "rep": rep, "jax_cpu": anchor,
+                     "launches_per_rank": per_rank}
+    for i, c in enumerate(r0["c"]):
+        pa = c["per_apply"]
+        log(f"sharded structured {c['name']} f64: sharded apply vs "
+            f"replicated structured apply max rel {c['apply_rel']:.3e} "
+            f"(exactly equal {c['apply_exact']}); slabs (axis, sizes) per "
+            f"level {c['slabs']}; per apply on rank 0: ppermute "
+            f"{pa['ppermute']['calls']} calls {pa['ppermute']['bytes']} B, "
+            f"all_gather {pa['all_gather']['calls']} calls "
+            f"{pa['all_gather']['bytes']} B, psum {pa['psum']['calls']} "
+            f"(design {c['design']})")
+        check(c["active"], f"{c['name']}: no structured program")
+        check(c["apply_rel"] <= 1e-12,
+              f"{c['name']}: sharded apply {c['apply_rel']:.3e}")
+        for o in out:
+            oc = o["c"][i]
+            check(all(oc["per_apply"][p] == oc["design"][p]
+                      for p in ("ppermute", "all_gather")) and
+                  oc["per_apply"]["psum"]["calls"] == 0,
+                  f"{c['name']}: rank {o['rank']}'s collectives "
+                  f"{oc['per_apply']} are not the design's {oc['design']}")
+            check(oc["design"]["ppermute"]["calls"] > 0,
+                  f"{c['name']}: no level is sharded")
+    rec["c"] = r0["c"]
+    rec["launches"] = sum(sum(r["launches_per_rank"])
+                          for r in (rec["a"], rec["b"]))
+    rec["phase_s"] = r0["s"]
+    log(f"phase 26 in {r0['s']:.1f} s (inside phase 25's spawn)")
     return rec
 
 
@@ -2405,7 +2508,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
-    # -- 25. distributed: 4 ranks on the card over gloo, NCCL at size 1 ------
+    # -- 25-26. distributed: 4 ranks on the card over gloo (the halo
+    # V-cycle, then the sharded structured apply), NCCL at size 1 ----------
     reset_counts()
     distributed = drive_distributed(device)
 
@@ -2448,7 +2552,8 @@ def main(argv=None) -> int:
             "driver": sum(driver[c]["launches"] for c in ANCHOR_DRIVER),
             **{f"driver_{c}": driver[c]["launches"] for c in ANCHOR_DRIVER},
             "plan_cache_stokes32cube": cached["launches"],
-            "halo_dia_4ranks": distributed["halo_dia_launches"]},
+            "halo_dia_4ranks": distributed["halo_dia_launches"],
+            "dist_structured": distributed["sharded"]["launches"]},
         "launches_per": {
             **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
             "bordered_solve": bordered["launches"],
@@ -2460,7 +2565,10 @@ def main(argv=None) -> int:
             "deflation_setup": deflated["setup_launches"],
             "deflated_solve": deflated["solve_launches"],
             "bordered_deflation_setup": bordered_deflated["setup_launches"],
-            "bordered_deflated_solve": bordered_deflated["solve_launches"]},
+            "bordered_deflated_solve": bordered_deflated["solve_launches"],
+            **{f"dist_structured_{t}_step_per_rank":
+               distributed["sharded"][p]["launches_per_rank"]
+               for p, t in (("a", "cavity64"), ("b", "stokes128_L2"))}},
         "max_abs_err": max(dia_solver_err[0], *(
             r["max_abs_err"] for recs in dia.values()
             for r in recs.values())),

@@ -1327,10 +1327,22 @@ class Preconditioner:
         return paths
 
     def sharded_sapply_fn(self, mesh):
-        """The structured apply sharded over `mesh`, where the reference
-        takes it (hymls_tpu/core/preconditioner.py:sharded_sapply_fn):
-        not ported, so this raises (core/structured.py)."""
-        return self._structured.sharded_apply_fn(mesh)
+        """The structured apply with its box grids split over the ranks
+        of `mesh` (core/structured.py ShardedApply), with the signature
+        of `apply_fn`: sapply(sfactors, consts, b) -> x, the input and
+        the output replicated on every rank (the reference's
+        sharded_sapply_fn).  With the B-grid transform, T' before and T
+        after it, replicated, through the same DIA operators as the
+        single-process apply.  None without a structured program."""
+        if self._structured is None:
+            return None
+        apply_sh = self._structured.sharded_apply_fn(mesh)
+
+        def sapply(factors, consts, b):
+            def apply(v):
+                return apply_sh(factors, v, consts)
+            return apply(b) if self._bgrid is None else self._bgrid(apply, b)
+        return sapply
 
     def apply_inverse_fn(self):
         """(apply_fn, factors, plans) with apply_fn(factors, plans, b)

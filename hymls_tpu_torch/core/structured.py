@@ -43,6 +43,7 @@ import numpy as np
 
 import torch
 
+from ..parallel import collectives as C
 from .dense import dense_solve as _dense_solve
 
 
@@ -983,13 +984,16 @@ class StructuredProgram:
     def apply(self, sfactors, b, consts=None):
         """x = M^{-1} b for the repacked factor tree `sfactors`."""
         consts = self.consts if consts is None else consts
-        return self._apply_level(0, sfactors, consts, b)
+        return self._apply_level(0, sfactors, consts, b, _REPLICATED)
 
-    def _apply_level(self, lev, sfactors, consts, b):
+    def _apply_level(self, lev, sfactors, consts, b, sh):
         # all separator work happens in the flat slot space (every
         # template's slots concatenated, SW channels): a handful of
         # one-hot matmul folds and one roll per DISTINCT neighbour
-        # offset
+        # offset.  `sh` places the level's box grid: whole on this
+        # process (_REPLICATED), or a slab of it (ShardedApply), where
+        # `cut` takes the slab of a whole grid, `gather` makes a slab
+        # whole again and `roller` rolls a slab
         L = self.levels[lev]
         c = consts["levels"][lev]
         f = sfactors["levels"][lev]
@@ -1012,18 +1016,20 @@ class StructuredProgram:
         else:
             r = b.reshape(nK, bz, nJ, by, nI, bx, L.in_chan) \
                  .permute(0, 2, 4, 1, 3, 5, 6).reshape(nK, nJ, nI, L.NCH)
+        r = sh.cut(lev, r)
         x1 = _ein("kijab,kijb->kija", f["A11"], r)
 
         if SW == 0:
             # no separators at this level (degenerate); interior only
-            return self._exit_level(lev, x1, c)
+            return self._exit_level(lev, sh.gather(lev, x1), c)
 
         y2c = _ein("kijab,kijb->kija", f["A21"], x1)
 
         # separator rhs: own values minus neighbour contributions
         acc = _ein("kijc,cs->kijs", r, c["E"])
+        roll = sh.roller(lev)
         for o, M in zip(offs, c["offM"]):
-            sl = _roll(y2c, o) if any(o) else y2c
+            sl = roll(y2c, o) if any(o) else y2c
             acc = acc - _ein("kijn,ns->kijs", sl, M)
 
         # orthogonal transform (2ww' - I per template; degenerate
@@ -1039,10 +1045,11 @@ class StructuredProgram:
             yb = _ein("kijab,kijb->kija", B, tb)
             y_all = y_all + _ein("kijm,sm->kijs", yb, X)
 
-        # Vsum rhs -> next level / coarse
-        vs = _ein("kijs,st->kijt", tt, c["V"])
+        # Vsum rhs -> next level / coarse, which start from the whole
+        # Vsum grid
+        vs = sh.gather(lev, _ein("kijs,st->kijt", tt, c["V"]))
         if lev + 1 < len(self.levels):
-            x_next = self._apply_level(lev + 1, sfactors, consts, vs)
+            x_next = self._apply_level(lev + 1, sfactors, consts, vs, sh)
             if self.levels[lev + 1].mode == "perm":
                 # perm child returns its flat (box, channel) vector;
                 # route it back into this level's Vsum layout
@@ -1051,6 +1058,7 @@ class StructuredProgram:
             rhs = vs.reshape(-1)[consts["coarse"]["src"]]
             sol = _dense_solve(sfactors["coarse"], rhs)
             x_next = _zext(sol)[consts["coarse"]["back"]].reshape(vs.shape)
+        x_next = sh.cut(lev, x_next)
 
         # merge Vsum solutions (block solves left those slots zero),
         # inverse transform, mask invalid slots
@@ -1061,8 +1069,9 @@ class StructuredProgram:
 
         # back-substitution: x2 scattered to contributor layout (NC)
         x2c = None
+        roll = sh.roller(lev)
         for o, M in zip(offs, c["offM"]):
-            sl = _roll(x2, tuple(-v for v in o)) if any(o) else x2
+            sl = roll(x2, tuple(-v for v in o)) if any(o) else x2
             part = _ein("kijs,ns->kijn", sl, M)
             x2c = part if x2c is None else x2c + part
         if x2c is not None:
@@ -1072,16 +1081,14 @@ class StructuredProgram:
         # disjoint across templates; invalid slots are zero in x2; the
         # one-hot einsum is the scatter-free embed)
         out = x1 + _ein("kijs,cs->kijc", x2, c["E"])
-        return self._exit_level(lev, out, c)
+        return self._exit_level(lev, sh.gather(lev, out), c)
 
     def sharded_apply_fn(self, mesh, axis_name: Optional[str] = None):
-        """Not ported (ROADMAP M12's last item: the box-grid sharding's
-        rolls cross shards and need an exchange of their own); solvers
-        that would take it raise here.  Set 'Structured Apply' false."""
-        raise NotImplementedError(
-            "the sharded structured apply is not ported to hymls_tpu_torch "
-            "yet (ROADMAP M12, its last item); set 'Structured Apply' to "
-            "false for the distributed halo V-cycle")
+        """The apply with each large box grid split over the ranks of
+        `mesh` (ShardedApply): a callable (sfactors, b, consts) -> x, as
+        the reference's.  `axis_name` is the reference's GSPMD mesh axis;
+        a torch mesh has one axis, so it is ignored."""
+        return ShardedApply(self, mesh)
 
     def _exit_level(self, lev, out, c):
         L = self.levels[lev]
@@ -1101,3 +1108,215 @@ class StructuredProgram:
         if lev == 0:
             return out.reshape(-1)
         return out
+
+
+# ---------------------------------------------------------------------------
+# the apply sharded over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+class _Replicated:
+    """The placement of the single-process apply: every box grid whole
+    on this process, so there is nothing to cut, gather or exchange."""
+
+    @staticmethod
+    def cut(lev, t):
+        return t
+
+    @staticmethod
+    def gather(lev, t):
+        return t
+
+    @staticmethod
+    def roller(lev):
+        return _roll
+
+
+_REPLICATED = _Replicated()
+
+
+def balanced_split(n: int, parts: int) -> List[int]:
+    """Sizes of `parts` contiguous slabs of `n` planes that differ by at
+    most one, the larger first: 16 on 3 is 6/5/5, 8 on 3 is 3/3/2."""
+    q, r = divmod(n, parts)
+    return [q + (i < r) for i in range(parts)]
+
+
+@dataclass(frozen=True)
+class Slab:
+    """One level's split: the box axis `ax` (0, 1, 2 = K, J, I) cut into
+    contiguous slabs of `sizes` planes, rank i holding the i-th."""
+    ax: int
+    sizes: Tuple[int, ...]
+
+    def start(self, rank: int) -> int:
+        return sum(self.sizes[:rank])
+
+
+def roll_slab(mesh, t, sl: Slab, s: int, tag: Optional[str] = None):
+    """This rank's slab of torch.roll(whole, s, dims=sl.ax), from its
+    slab `t` of the whole grid: the |s| planes that cross the slab's
+    edge come from the ring neighbour by one ppermute (the last rank's
+    successor is the first, so the wrap is the periodic roll's)."""
+    n, k, ax = mesh.size, abs(s), sl.ax
+    if k > min(sl.sizes):
+        raise ValueError(f"a roll by {s} crosses a slab of "
+                         f"{min(sl.sizes)} planes")
+    m = t.shape[ax]
+    if s < 0:
+        # out[i] = whole[i + k]: the successor's first k planes
+        recv = C.ppermute(mesh, t.narrow(ax, 0, k),
+                          [(i, (i - 1) % n) for i in range(n)], tag=tag)
+        return torch.cat([t, recv], ax).narrow(ax, k, m)
+    # out[i] = whole[i - k]: the predecessor's last k planes
+    recv = C.ppermute(mesh, t.narrow(ax, m - k, k),
+                      [(i, (i + 1) % n) for i in range(n)], tag=tag)
+    return torch.cat([recv, t], ax).narrow(ax, 0, m)
+
+
+class ShardedApply:
+    """The structured apply with the box grids split over the ranks of
+    `mesh` (torch counterpart of the reference's GSPMD
+    `sharded_apply_fn`, hymls_tpu/core/structured.py; the reference's
+    Export-with-Add halo traffic, src/HYMLS_Preconditioner.cpp:
+    973-1052).  Every rank runs it with the same replicated input and
+    gets the same replicated output.
+
+    Which levels shard: a level not in "perm" mode whose largest box axis
+    holds at least one box per rank; that axis is cut into contiguous
+    slabs of planes (`balanced_split`).  Every other level, and the
+    coarse solve, runs whole on every rank, as the reference pins them
+    replicated.
+
+    Per apply and sharded level, what crosses ranks:
+      * each distinct nonzero shift s along the sharded axis among the
+        level's roll offsets moves |s| boundary planes to the ring
+        neighbour, once on the way down (the y2c contributions) and
+        once in the back-substitution (the x2 solutions): one
+        `ppermute` each, tagged "sapply<level>".  The ring wraps from
+        the last rank to the first, so the slabs see exactly the
+        periodic `torch.roll` of the whole grid; the other axes' shifts
+        stay local.  On a 2-D Cartesian grid the offsets' only shift
+        along the axis is -1: two ppermutes per level;
+      * two `all_gather`s: the Vsum right-hand side before the next
+        level (or the coarse solve), and the level's output before its
+        exit permute.
+    Entry cuts a slab out of the replicated input, and the next level's
+    replicated solution, with no communication.
+
+    Factors: the caller computes and repacks the factor tree replicated
+    (as the reference's fused program does before GSPMD shards the
+    level bodies); each rank cuts its slabs of everything with box axes
+    (A11, A21, G, the block combos, and the consts wf and svf) once per
+    factor tree: the cut is cached against the identity of the last
+    (sfactors, consts) pair, so a compute() or recompute(), which makes
+    a new tree, is cut afresh."""
+
+    def __init__(self, prog: StructuredProgram, mesh):
+        self.prog = prog
+        self.mesh = mesh
+        self.slabs: List[Optional[Slab]] = []
+        for L in prog.levels:
+            dims = (L.nK, L.nJ, L.nI)
+            ax = int(np.argmax(dims))
+            if L.mode == "perm" or dims[ax] < mesh.size:
+                self.slabs.append(None)
+            else:
+                self.slabs.append(Slab(ax, tuple(balanced_split(
+                    dims[ax], mesh.size))))
+        self._src = None
+        self._local = None
+
+    def __call__(self, sfactors, b, consts=None):
+        consts = self.prog.consts if consts is None else consts
+        f, c = self.local_trees(sfactors, consts)
+        return self.prog._apply_level(0, f, c, b, self)
+
+    def traffic(self, itemsize: int) -> Dict[str, Dict[str, int]]:
+        """What one apply on vectors of `itemsize` bytes sends from this
+        rank, by the design above, in the form of Mesh.counters:
+        {"ppermute": {"calls", "bytes"}, "all_gather": {"calls",
+        "bytes"}} (an all_gather sends the longest slab's worth)."""
+        out = {p: {"calls": 0, "bytes": 0}
+               for p in ("ppermute", "all_gather")}
+
+        def add(prim, words):
+            out[prim]["calls"] += 1
+            out[prim]["bytes"] += int(words) * itemsize
+
+        for lev, (L, sl) in enumerate(zip(self.prog.levels, self.slabs)):
+            if sl is None:
+                continue
+            plane = L.nK * L.nJ * L.nI // (L.nK, L.nJ, L.nI)[sl.ax]
+            width = max(sl.sizes) * plane
+            SW = self.prog._sw[lev]
+            if SW == 0:
+                add("all_gather", width * L.NCH)
+                continue
+            for s in {o[sl.ax] for o in self.prog._offsets[lev]} - {0}:
+                add("ppermute", abs(s) * plane * L.NC)      # y2c, down
+                add("ppermute", abs(s) * plane * SW)        # x2, back
+            add("all_gather", width * max(len(L.templates), 1))   # vs
+            add("all_gather", width * L.NCH)                      # out
+        return out
+
+    # -- the slabs of the factors and consts -------------------------------
+    def local_trees(self, sfactors, consts):
+        """(sfactors, consts) with this rank's slab of every per-box
+        tensor of a sharded level, cut once per pair."""
+        if self._src is None or self._src[0] is not sfactors or \
+                self._src[1] is not consts:
+            fl, cl = [], []
+            for lev, (f, c) in enumerate(zip(sfactors["levels"],
+                                             consts["levels"])):
+                if self.slabs[lev] is None:
+                    fl.append(f)
+                    cl.append(c)
+                    continue
+
+                def cut(t, lev=lev):
+                    return self.cut(lev, t).contiguous()
+                fl.append({"A11": cut(f["A11"]), "A21": cut(f["A21"]),
+                           "G": cut(f["G"]),
+                           "blk": [cut(B) for B in f["blk"]]})
+                cl.append({**c, "wf": cut(c["wf"]), "svf": cut(c["svf"])})
+            self._src = (sfactors, consts)
+            self._local = ({**sfactors, "levels": fl},
+                           {**consts, "levels": cl})
+        return self._local
+
+    # -- the placement hooks of StructuredProgram._apply_level -------------
+    def cut(self, lev, t):
+        """This rank's slab (a view) of a whole box grid `t`."""
+        sl = self.slabs[lev]
+        if sl is None:
+            return t
+        r = self.mesh.rank
+        return t.narrow(sl.ax, sl.start(r), sl.sizes[r])
+
+    def gather(self, lev, t):
+        """The whole box grid from every rank's slab `t`."""
+        sl = self.slabs[lev]
+        if sl is None:
+            return t
+        g = C.all_gather(self.mesh, t.movedim(sl.ax, 0), sizes=sl.sizes)
+        return g.movedim(0, sl.ax)
+
+    def roller(self, lev):
+        """A roll function for one tensor's offsets at level `lev`: the
+        shift along the sharded axis is exchanged once per distinct
+        shift and kept for the offsets that share it."""
+        sl = self.slabs[lev]
+        if sl is None:
+            return _roll
+        done: Dict[int, torch.Tensor] = {}
+
+        def roll(t, o: Off):
+            s = o[sl.ax]
+            if s:
+                if s not in done:
+                    done[s] = roll_slab(self.mesh, t, sl, s,
+                                        tag=f"sapply{lev}")
+                t = done[s]
+            rest = tuple(0 if a == sl.ax else v for a, v in enumerate(o))
+            return _roll(t, rest) if any(rest) else t
+        return roll

@@ -8,8 +8,10 @@ solves for the correction of the f64 residual to a loose, adaptive
 inner tolerance, and the refinement loop carries the result to the
 outer tolerance.  The f64 residual goes through an f64 DiaOperator, so
 the DIA kernel runs in f64 as well as in f32.  Under 'Distributed Apply'
-with a mesh the whole Newton step runs owner-sharded (`refine_dist`,
-reference mixed.py:219-296).
+with a mesh, the refinement loop stays replicated around the structured
+apply sharded over the ranks when the structured program is active
+(reference mixed.py:139-155); else the whole Newton step runs
+owner-sharded (`refine_dist`, reference mixed.py:219-296).
 """
 from __future__ import annotations
 
@@ -88,16 +90,19 @@ class IterativeRefinementSolver:
         self.solver.set_border(V, W, C)
         return self
 
-    def refine(self, vals64, vals32, factors, aplans, b) -> KrylovResult:
+    def refine(self, vals64, vals32, factors, aplans, b,
+               apply_fn=None) -> KrylovResult:
         """The refinement loop: f64 residual -> f32 Krylov correction ->
         f64 update, until the true relative residual reaches the outer
         tolerance or `max_passes` passes ran.  `iters` counts the inner
-        f32 iterations of all passes."""
+        f32 iterations of all passes.  `apply_fn` (default the
+        preconditioner's own) is the sharded structured apply under
+        'Distributed Apply'."""
         pv64 = self.op64.prepare(vals64)
         pv32 = self.solver.op.prepare(vals32)
         mv32 = self.solver.op.matvec_prepared
         mv64 = self.op64.matvec_prepared
-        apply_fn = self.precond.apply_fn
+        apply_fn = apply_fn or self.precond.apply_fn
         cg = self.solver.method == "CG"
         nb = float(torch.linalg.norm(b))
         nb = nb if nb > 0 else 1.0
@@ -135,14 +140,16 @@ class IterativeRefinementSolver:
                             converged=rel <= self.tol)
 
     def _dist(self):
-        """This rank's distributed operator and apply pair under
-        'Distributed Apply' (Solver._make_dist), or None.  Where the
-        reference would shard the structured apply over the mesh, this
-        raises (core/structured.py)."""
+        """Under 'Distributed Apply', (sapply, None) with the sharded
+        structured apply (Solver._make_dist_structured) or else
+        (None, dist) with this rank's owner-sharded operator and apply
+        pair (Solver._make_dist); (None, None) without."""
         if not self.solver.distributed:
-            return None
-        self.solver._check_structured_dist()
-        return self.solver._make_dist()
+            return None, None
+        sapply = self.solver._make_dist_structured()
+        if sapply is not None:
+            return sapply, None
+        return None, self.solver._make_dist()
 
     def refine_dist(self, dist, vals64, vals32, fac_st, b) -> KrylovResult:
         """`refine` in the owner layout (reference mixed.py:
@@ -187,10 +194,13 @@ class IterativeRefinementSolver:
         """One Newton step: f32 re-factorization from the f64 values,
         the structured repack when that apply is active, then the
         refinement solve (the counterpart of the reference's
-        `newton_step_fn` program).  Distributed: the factorization of
-        parallel/dist_compute.py straight into `refine_dist`."""
+        `newton_step_fn` program).  Distributed with the structured
+        program active: the replicated factorization and repack, and the
+        refinement loop on the sharded structured apply; else the
+        factorization of parallel/dist_compute.py straight into
+        `refine_dist`."""
         P = self.precond
-        dist = self._dist()
+        sapply, dist = self._dist()
         if dist is not None:
             b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
             fac_st = dist.compute(vals64) if dist.dcompute is not None \
@@ -202,7 +212,7 @@ class IterativeRefinementSolver:
         factors = P.apply_factors_from(P.compute_fn(vals64, P._dplans,
                                                     P._extra_plan))
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        res = self.refine(vals64, vals32, factors, P._aplans, b)
+        res = self.refine(vals64, vals32, factors, P._aplans, b, sapply)
         self._last_result = res
         return res
 
@@ -215,7 +225,7 @@ class IterativeRefinementSolver:
         (KrylovResult, factors) with the unpruned factor tree for the
         next step."""
         P = self.precond
-        dist = self._dist()
+        sapply, dist = self._dist()
         factors = P.compute_fn(vals64, P._dplans, P._extra_plan, prev=prev)
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
         if dist is not None:
@@ -225,14 +235,14 @@ class IterativeRefinementSolver:
                 dist.stack_factors(P._prune_factors(factors)), b)
         else:
             res = self.refine(vals64, vals32, P.apply_factors_from(factors),
-                              P._aplans, b)
+                              P._aplans, b, sapply)
         self._last_result = res
         return res, factors
 
     def solve(self, b):
         """Refinement solve with the current factors; returns x."""
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        dist = self._dist()
+        sapply, dist = self._dist()
         if dist is not None:
             res = self.refine_dist(
                 dist, self.op64.vals, self.solver.op.vals,
@@ -241,7 +251,7 @@ class IterativeRefinementSolver:
         else:
             res = self.refine(self.op64.vals, self.solver.op.vals,
                               self.precond.apply_factors,
-                              self.precond._aplans, b)
+                              self.precond._aplans, b, sapply)
         self._last_result = res
         return res.x
 

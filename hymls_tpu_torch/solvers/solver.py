@@ -8,9 +8,12 @@ preconditioning side, the start vector and the GMRES restart length
 system, and `setup_deflation` turns it into the deflated solve (with a
 border: deflation of the bordered system).
 
-'Distributed Apply' runs the Krylov iteration owner-sharded over the
-active mesh (parallel/dist.py): every rank makes the same calls with
-the same global vectors and gets the whole solution back.
+'Distributed Apply' runs over the active mesh: with the structured
+program active, the replicated Krylov loop around the structured apply
+sharded over the ranks (core/structured.py ShardedApply); else the
+Krylov iteration owner-sharded (parallel/dist.py).  Every rank makes
+the same calls with the same global vectors and gets the whole
+solution back.
 """
 from __future__ import annotations
 
@@ -59,14 +62,18 @@ class Solver:
         self.tol = it.get("Convergence Tolerance", 1e-6)
         # Belos 'Num Blocks': GMRES basis size (restart length)
         self.restart = it.get("Num Blocks", None)
-        # 'Distributed Apply': the whole Krylov iteration in the
-        # owner-sharded halo layout over the active mesh (the reference's
+        # 'Distributed Apply' over the active mesh (the reference's
         # production multi-rank path, src/HYMLS_Preconditioner.cpp:
-        # 973-1052); without a mesh, or with a structure that cannot be
-        # owner-sharded, the first solve warns and takes the replicated
-        # apply (`_make_dist`)
+        # 973-1052): with the structured program active, the replicated
+        # Krylov loop around the structured apply sharded over the ranks
+        # (`_make_dist_structured`); else the whole Krylov iteration in
+        # the owner-sharded halo layout (`_make_dist`).  Without a mesh,
+        # or with a structure that cannot be owner-sharded, the first
+        # solve warns and takes the replicated apply
         self.distributed = slist.get("Distributed Apply", False)
         self._dist = None
+        self._dist_structured = None
+        self._sapply = None
         self._last_result = None
         self._border = None
         self._border_coeffs = None
@@ -122,14 +129,29 @@ class Solver:
             return None
         return self._dist
 
-    def _check_structured_dist(self):
-        """Where the reference runs the structured apply sharded over
-        the mesh (hymls_tpu/solvers/solver.py:160-180), the port raises
-        (core/structured.py): it never quietly runs another apply."""
+    def _make_dist_structured(self):
+        """The structured apply sharded over the active mesh
+        (Preconditioner.sharded_sapply_fn), where the reference takes it
+        (hymls_tpu/solvers/solver.py:158-184): the structured program
+        active (so no border) and a mesh of 2 or more ranks.  Else None,
+        and the caller goes on to `_make_dist`.  Sets `_dist_structured`
+        to the mesh.
+
+        The Krylov loop around it stays replicated: every rank holds the
+        whole vectors.  Every apply ends in all_gathers, so all ranks
+        get the same bytes back, and the operator, the dots and the
+        preconditioner's replicated parts are deterministic functions of
+        equal inputs: every host branch (convergence, breakdown, the
+        refinement passes) reads equal values on every rank."""
+        if not self.precond._structured_active:
+            return None
         mesh = get_mesh()
-        if self.precond._structured_active and mesh is not None and \
-                mesh.size >= 2:
-            self.precond.sharded_sapply_fn(mesh)
+        if mesh is None or mesh.size < 2:
+            return None
+        if self._dist_structured is not mesh:
+            self._sapply = self.precond.sharded_sapply_fn(mesh)
+            self._dist_structured = mesh
+        return self._sapply
 
     def set_border(self, V, W=None, C=None):
         """Solve the bordered system [K V; W' C] [x; s] = [b; t]
@@ -173,10 +195,11 @@ class Solver:
             x = _defl.deflated_apply(self._deflation, bz, self._proj_solve)
             return torch.as_tensor(x[:self.op.n], dtype=self.dtype,
                                    device=self.device), self._last_res
-        dist = None
+        dist = sapply = None
         if self.distributed:
-            self._check_structured_dist()
-            dist = self._make_dist()
+            sapply = self._make_dist_structured()
+            if sapply is None:
+                dist = self._make_dist()
         b = torch.as_tensor(b, dtype=self.dtype, device=self.device)
         x0 = self._start_vector(b) if x0 is None else torch.as_tensor(
             x0, dtype=self.dtype, device=self.device)
@@ -199,11 +222,13 @@ class Solver:
             x = res.x[:n]
             self._border_coeffs = res.x[n:].cpu().numpy()
         else:
+            apply_fn = self.precond.apply_fn if sapply is None else sapply
+
             def op(x):
                 return self.op.matvec_prepared(pvals, x)
 
             def prec(x):
-                return self.precond.apply_fn(factors, dplans, x)
+                return apply_fn(factors, dplans, x)
 
             if self.method == "CG":
                 res = krylov.cg(op, b, x0, prec, tol=self.tol,

@@ -1,10 +1,12 @@
-"""The distributed cases chip_smoke.py phase 25 runs, and its rank body.
+"""The distributed cases chip_smoke.py phases 25 and 26 run, and their
+rank bodies.
 
 The case builders return plain parameter dicts and scipy matrices (no
-solver object), so that tests/_torch_anchors.py 25 builds the JAX
-package's solvers from the same inputs.  Every case sets 'Structured
-Apply' False: the sharded structured apply is not ported, and with it
-on the port raises where the reference would shard it.
+solver object), so that tests/_torch_anchors.py 25 and 26 build the JAX
+package's solvers from the same inputs.  Phase 25's cases set
+'Structured Apply' False, so that they run the owner-sharded halo
+V-cycle; phase 26's leave it at "Auto", so that they run the structured
+apply sharded over the ranks (core/structured.py ShardedApply).
 
 `phase25(mesh)` runs in every rank of a mesh (parallel/launch.run):
 
@@ -20,8 +22,20 @@ on the port raises where the reference would shard it.
      collective counts and bytes;
   e. the halo DIA matvec against K @ x, with the DIA kernel's launches.
 
-It returns python numbers and numpy arrays only; rank 0's record holds
-the replicated counterparts.
+`phase26(mesh)` likewise:
+
+  a. the cavity64_Re1000 IR Newton step with 'Distributed Apply' and
+     'Structured Apply' "Auto" (bench.py's parameters), and replicated on
+     rank 0 alone, with the DIA kernel's launches on every rank;
+  b. stokes128_L2's IR Newton step, the same;
+  c. on cavity64 and stokes128_L2 in f64, one sharded structured apply
+     against the replicated structured apply, with its collective
+     counts and bytes beside those the design states
+     (ShardedApply.traffic).
+
+`phases25_26(mesh)` runs both in one spawn.  They return python numbers
+and numpy arrays only; rank 0's record holds the replicated
+counterparts.
 """
 from __future__ import annotations
 
@@ -36,9 +50,10 @@ import torch
 NX128 = 128
 
 
-def cavity64_dict(dist=False, levels=1, nx=64):
-    """bench.py:_stokes_params(64, 2, 1, "Cartesian") with 'Structured
-    Apply' False and 'Distributed Apply' `dist` (nx, levels: stokes128_L2
+def cavity64_dict(dist=False, levels=1, nx=64, structured=False):
+    """bench.py:_stokes_params(64, 2, 1, "Cartesian") with 'Distributed
+    Apply' `dist` and 'Structured Apply' `structured` (False for phase
+    25, bench.py's default "Auto" for phase 26; nx, levels: stokes128_L2
     is the same list at 128^2, L = 2)."""
     return {"Problem": {"Equations": "Stokes-C", "Dimension": 2, "nx": nx,
                         "ny": nx},
@@ -50,7 +65,7 @@ def cavity64_dict(dist=False, levels=1, nx=64):
             "Preconditioner": {"Partitioner": "Cartesian",
                                "Separator Length": 4,
                                "Number of Levels": levels,
-                               "Structured Apply": False}}
+                               "Structured Apply": structured}}
 
 
 def cavity64_matrix():
@@ -132,8 +147,10 @@ def _relres(K, x, b):
 def _newton(mesh, K, b, d, dist, steps=2):
     """IterativeRefinementSolver on (K, d): compute, then `steps` Newton
     steps; the last one's numbers and seconds (wall clock, synchronized
-    on every rank for the distributed one)."""
+    on every rank for the distributed one), and the DIA kernel's
+    launches in it."""
     from .. import Params
+    from ..ops.dia_spmv import dia_matvec
     from ..solvers.mixed import IterativeRefinementSolver
     from ..stencils import create_testvector
     d = {**d, "Solver": {**d["Solver"], "Distributed Apply": dist}}
@@ -147,6 +164,7 @@ def _newton(mesh, K, b, d, dist, steps=2):
             _sync(mesh)
         elif mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
+        dia_matvec.launches = 0
         t0 = time.perf_counter()
         res = S.newton_step(S.op64.vals, S.solver.op.vals, b)
         if mesh.device.type == "cuda":
@@ -154,11 +172,14 @@ def _newton(mesh, K, b, d, dist, steps=2):
         t = time.perf_counter() - t0
     rec = {"iters": res.iters, "relres": _relres(K, res.x, b), "s": t,
            "shape": tuple(res.x.shape), "finite":
-           bool(torch.isfinite(res.x).all()), "dtype": str(res.x.dtype)}
+           bool(torch.isfinite(res.x).all()), "dtype": str(res.x.dtype),
+           "launches": dia_matvec.launches,
+           "structured": S.precond._structured_active}
     if dist:
         rec["dist_active"] = S.solver._dist is not None
         rec["dcompute"] = rec["dist_active"] and \
             S.solver._dist.dcompute is not None
+        rec["sharded"] = S.solver._dist_structured is mesh
     return rec
 
 
@@ -335,6 +356,72 @@ def phase25(mesh, parts=("a", "b", "c", "d", "e")):
         out["e"] = {"cavity64_f64": _halo_dia(mesh, K, torch.float64),
                     "cavity64_f32": _halo_dia(mesh, K, torch.float32),
                     "stokes128_f64": _halo_dia(mesh, K128, torch.float64)}
+    return out
+
+
+def _sharded_apply_check(mesh, name, K, d):
+    """Phase 26c on one problem (f64): one sharded structured apply
+    against the replicated structured apply, its collectives and those
+    the design states."""
+    from .. import Params, Preconditioner
+    from ..stencils import create_testvector
+    params = Params(d)
+    P = Preconditioner(K, params, testvector=create_testvector(params, K),
+                       device=mesh.device).compute()
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(K.shape[0]),
+                        device=mesh.device)
+    x_rep = P.apply_inverse(b)
+    sapply = P.sharded_sapply_fn(mesh)
+    factors = P.apply_factors
+    sapply(factors, P._aplans, b)       # cuts this rank's factor slabs
+    _sync(mesh)
+    mesh.reset_counters()
+    x = sapply(factors, P._aplans, b)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    design = P._structured.sharded_apply_fn(mesh)
+    return {"name": name, "active": P._structured_active,
+            "apply_rel": float((x - x_rep).abs().max()) /
+            float(x_rep.abs().max()),
+            "apply_exact": bool(torch.equal(x, x_rep)),
+            "per_apply": _counters(mesh),
+            "design": design.traffic(x.element_size()),
+            "slabs": [None if sl is None else (sl.ax, list(sl.sizes))
+                      for sl in design.slabs]}
+
+
+def phase26(mesh, parts=("a", "b", "c")):
+    """The rank body of chip_smoke.py phase 26 (module docstring)."""
+    from .. import Params
+    out = {"rank": mesh.rank}
+    rank0 = mesh.rank == 0
+    K, b = cavity64_matrix()
+    d64 = cavity64_dict(structured="Auto")
+    K128, b128 = stokes128_matrix(Params)
+    d128 = cavity64_dict(False, 2, 128, structured="Auto")
+    for part, (KK, bb, dd, steps) in (("a", (K, b, d64, 2)),
+                                      ("b", (K128, b128, d128, 1))):
+        if part not in parts:
+            continue
+        out[part] = {"dist": _newton(mesh, KK, bb, dd, True, steps=steps)}
+        _sync(mesh)
+        if rank0:
+            out[part]["rep"] = _newton(mesh, KK, bb, dd, False, steps=steps)
+        _sync(mesh)
+    if "c" in parts:
+        out["c"] = [_sharded_apply_check(mesh, "cavity64", K, d64),
+                    _sharded_apply_check(mesh, "stokes128_L2", K128, d128)]
+    return out
+
+
+def phases25_26(mesh):
+    """chip_smoke.py's one spawn: phase 25, then phase 26 on the same
+    ranks."""
+    out = phase25(mesh)
+    _sync(mesh)
+    t0 = time.perf_counter()
+    out["26"] = phase26(mesh)
+    out["26"]["s"] = time.perf_counter() - t0
     return out
 
 

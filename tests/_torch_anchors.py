@@ -1,14 +1,15 @@
-"""CPU anchors of chip_smoke.py's phases 18-22 and 25: the deflated,
+"""CPU anchors of chip_smoke.py's phases 18-22, 25 and 26: the deflated,
 complex and eigenvalue solves, the driver's configs and the distributed
-solves at the sizes that script runs on the card, through the JAX
-package and through the port on the CPU.
+solves (the halo V-cycle's and the sharded structured apply's) at the
+sizes that script runs on the card, through the JAX package and through
+the port on the CPU.
 
     JAX_PLATFORMS=cpu python tests/_torch_anchors.py [phase ...]
 
 prints one line per case and package (iterations, residuals, counts);
-phases are 18, 19, 20, 21a, 21b, 21c, 22, 25 (default: all).  Phase 25
-runs the JAX package on a virtual mesh of 4 CPU devices and the port on
-4 gloo ranks (parallel/launch.run).  The numbers go
+phases are 18, 19, 20, 21a, 21b, 21c, 22, 25, 26 (default: all).  Phases
+25 and 26 run the JAX package on a virtual mesh of 4 CPU devices and the
+port on 4 gloo ranks (parallel/launch.run).  The numbers go
 into chip_smoke.py's ANCHOR_* constants and PERF.md section 4.
 """
 import os
@@ -348,8 +349,70 @@ def phase25(ndev=4):
     print(f"  [{time.perf_counter() - t0:.1f} s]")
 
 
+def phase26(ndev=4):
+    """The sharded structured IR Newton steps of chip_smoke.py phase 26
+    (a, b), at ndev ranks, each beside the replicated step;
+    hymls_tpu_torch/tools/dist_cases.py holds the cases."""
+    from hymls_tpu.parallel.mesh import make_mesh, set_mesh
+    from hymls_tpu.solvers.mixed import IterativeRefinementSolver as JIR
+    from hymls_tpu_torch.parallel import launch
+    from hymls_tpu_torch.tools import dist_cases as dc
+    import jax
+    import jax.numpy as jnp
+
+    def jax_newton(K, b, d):
+        params = H.Params(d)
+        S = JIR(K, params, testvector=create_testvector(params, K))
+        S.compute()
+        fn, dpl, ex, apl = S.newton_step_fn()
+        r = jax.device_get(fn(S.op64.vals, S.solver.op.vals, dpl, ex, apl,
+                              jnp.asarray(b, jnp.float64)))
+        return (f"{int(r.iters)} inner iterations, relres "
+                f"{relres(K, np.asarray(r.x), b):.2e}, sharded structured "
+                f"{getattr(S, '_dist_structured', None) is not None}")
+
+    K, b = dc.cavity64_matrix()
+    K128, b128 = dc.stokes128_matrix(T.Params)
+    cases = {"a cavity64 IR newton_step": (K, b, lambda dist: dc.cavity64_dict(
+                 dist, structured="Auto")),
+             "b stokes128_L2 IR newton_step": (K128, b128, lambda dist:
+                 dc.cavity64_dict(dist, 2, 128, structured="Auto"))}
+    print(f"26 sharded structured: the JAX package, replicated and on "
+          f"{ndev} virtual CPU devices")
+    for name, (KK, bb, dict_of) in cases.items():
+        for dist in (False, True):
+            t0 = time.perf_counter()
+            set_mesh(make_mesh(ndev) if dist else None)
+            try:
+                out = jax_newton(KK, bb, dict_of(dist))
+            finally:
+                set_mesh(None)
+            print(f"  jax  {name} {'dist' if dist else 'rep '}: {out}  "
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    print(f"26 sharded structured: the port on {ndev} gloo CPU ranks")
+    t0 = time.perf_counter()
+    out = launch.run(dc.phase26, ndev, backend="gloo", device="cpu",
+                     timeout_s=3000)
+    for part, tag in (("a", "cavity64 IR newton_step"),
+                      ("b", "stokes128_L2 IR newton_step")):
+        for side in ("dist", "rep"):
+            r = out[0][part][side]
+            print(f"  port {part} {tag} {side}: {r['iters']} inner "
+                  f"iterations, relres {r['relres']:.2e}"
+                  + (f", sharded {r['sharded']}, halo {r['dist_active']}, "
+                     f"all ranks {[o[part]['dist']['iters'] for o in out]}"
+                     if side == "dist" else ""))
+    for c in out[0]["c"]:
+        print(f"  port c {c['name']}: sharded apply vs replicated "
+              f"{c['apply_rel']:.2e} (exact {c['apply_exact']}), slabs "
+              f"{c['slabs']}, per apply {c['per_apply']}, design "
+              f"{c['design']}")
+    print(f"  [{time.perf_counter() - t0:.1f} s]")
+
+
 PHASES = {"18": phase18, "19": phase19, "20": phase20, "21a": phase21a,
-          "21b": phase21b, "21c": phase21c, "22": phase22, "25": phase25}
+          "21b": phase21b, "21c": phase21c, "22": phase22, "25": phase25,
+          "26": phase26}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or PHASES:

@@ -83,7 +83,55 @@ def primitives(mesh):
     out["gather"] = _np(C.all_gather(mesh, part, sizes=sizes))
     out["gather_equal"] = _np(C.all_gather(mesh, x[:2]))
     out["x"] = _np(x)
-    out["counters"] = mesh.counters
+    out["counters"] = {k: dict(v) for k, v in mesh.counters.items()}
+    out["rolls"] = slab_rolls(mesh)
+    # the same on a mesh of ranks 0 and 1 (every rank joins new_group)
+    import torch.distributed as dist
+    from hymls_tpu_torch.parallel.mesh import Mesh
+    pair = dist.new_group([0, 1])
+    if r < 2:
+        out["rolls2"] = slab_rolls(Mesh(pair, backend="gloo",
+                                        device=mesh.device))
+    return out
+
+
+#: the box grid the roll test splits: 3 planes along K (2/1 on 2 ranks,
+#: one each on 3), 7 along J (uneven on 2 and 3 ranks: 4/3 and 3/2/2)
+#: and 6 along I (even on 2 and 3 ranks)
+ROLL_GRID = (3, 7, 6, 2)
+ROLL_SHIFTS = (-2, -1, 1, 2)
+
+
+def roll_grid():
+    return np.random.default_rng(3).standard_normal(ROLL_GRID)
+
+
+def slab_rolls(mesh):
+    """core/structured.py roll_slab on this rank's slab of `roll_grid()`
+    split along each box axis, for the shifts of ROLL_SHIFTS no wider
+    than the smallest slab, each gathered whole (for the parent to hold
+    against torch.roll of the whole grid); and whether a shift wider
+    than the smallest slab raises."""
+    from hymls_tpu_torch.core.structured import (Slab, balanced_split,
+                                                 roll_slab)
+    g = torch.as_tensor(roll_grid(), device=mesh.device)
+    out = {}
+    for ax in (0, 1, 2):
+        sl = Slab(ax, tuple(balanced_split(g.shape[ax], mesh.size)))
+        t = g.narrow(ax, sl.start(mesh.rank), sl.sizes[mesh.rank])
+        for s in ROLL_SHIFTS:
+            if abs(s) > min(sl.sizes):
+                continue
+            y = roll_slab(mesh, t, sl, s)
+            out[(ax, s)] = _np(C.all_gather(mesh, y.movedim(ax, 0),
+                                            sizes=sl.sizes).movedim(0, ax))
+    try:
+        wide = Slab(1, tuple(balanced_split(g.shape[1], mesh.size)))
+        roll_slab(mesh, g.narrow(1, 0, wide.sizes[mesh.rank]), wide,
+                  min(wide.sizes) + 1)
+        out["wide"] = None
+    except ValueError as e:
+        out["wide"] = str(e)
     return out
 
 
@@ -300,13 +348,14 @@ def aniso_matrix(nx=32, eps=0.01):
     return -_cross2d(nx, nx, 2 + 2 * eps, -1.0, -1.0, -eps, -eps)
 
 
-def _deflated_solve(mesh, dist):
+def _deflated_solve(mesh, dist, structured=False):
     K = aniso_matrix()
     pd = precond_params("Laplace", 32, 2, solver={
         "Krylov Method": "GMRES", "Initial Vector": "Zero",
         "Distributed Apply": dist, "Deflated Subspace Dimension": 8,
         "Iterative Solver": {"Maximum Iterations": 100,
                              "Convergence Tolerance": 1e-10}})
+    pd["Preconditioner"]["Structured Apply"] = structured
     params = Params(pd)
     P = Preconditioner(K, params, testvector=create_testvector(params, K),
                        device=mesh.device).compute()
@@ -317,7 +366,7 @@ def _deflated_solve(mesh, dist):
     return S, _np(x), res, x_ex
 
 
-def _complex_solve(mesh, dist, bordered):
+def _complex_solve(mesh, dist, bordered, structured=False):
     from hymls_tpu_torch.solvers.complex_solver import ComplexSolver
     from hymls_tpu_torch.stencils import laplace2d
     A = laplace2d(32, 32)
@@ -326,6 +375,7 @@ def _complex_solve(mesh, dist, bordered):
         "Krylov Method": "GMRES", "Distributed Apply": dist,
         "Iterative Solver": {"Maximum Iterations": 150 if bordered else 100,
                              "Convergence Tolerance": 1e-10}})
+    pd["Preconditioner"]["Structured Apply"] = structured
     params = Params(pd)
     P = Preconditioner(A, params, testvector=create_testvector(params, A),
                        device=mesh.device).compute()
@@ -347,10 +397,12 @@ def _complex_solve(mesh, dist, bordered):
     return CS, _np(z), res
 
 
-def mixed_params(dist, fprec=None):
-    """tests/test_dist_solve.py:_build_mixed's parameters."""
-    prec = {"Separator Length": 4, "Number of Levels": 2,
-            "Structured Apply": False, "Schur Assembly": "Full f64"}
+def mixed_params(dist, fprec=None, levels=2, structured=False):
+    """tests/test_dist_solve.py:_build_mixed's parameters (with
+    `levels` 1 and `structured` "Auto": its
+    test_dist_structured_mixed_newton_step's)."""
+    prec = {"Separator Length": 4, "Number of Levels": levels,
+            "Structured Apply": structured, "Schur Assembly": "Full f64"}
     if fprec is not None:
         prec["Factor Precision"] = fprec
     return {"Problem": {"Equations": "Stokes-C", "Dimension": 2, "nx": 32,
@@ -363,9 +415,9 @@ def mixed_params(dist, fprec=None):
             "Preconditioner": prec}
 
 
-def _newton_step(mesh, dist, fprec):
+def _newton_step(mesh, dist, fprec, **kw):
     from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
-    params = Params(mixed_params(dist, fprec))
+    params = Params(mixed_params(dist, fprec, **kw))
     K = create_matrix(params)
     S = IterativeRefinementSolver(K, params,
                                   testvector=create_testvector(params, K),
@@ -465,32 +517,50 @@ def dist_solves(mesh, which):
             rec["dist"]["relres"] = float(np.linalg.norm(K @ _np(x) - b) /
                                           np.linalg.norm(b))
         elif name == "structured":
-            # with the structured program active and a mesh, the port
-            # raises where the reference shards the structured apply
-            from hymls_tpu_torch.solvers.mixed import \
-                IterativeRefinementSolver
-            pd = _solve_params("Stokes-C", 32, 1, True, maxiter=200)
-            pd["Preconditioner"]["Structured Apply"] = "Auto"
-            params = Params(pd)
-            K = create_matrix(params)
-            tv = create_testvector(params, K)
-            P = Preconditioner(K, params, testvector=tv, device=mesh.device)
-            S = Solver(K, P, params, device=mesh.device)
-            IR = IterativeRefinementSolver(K, params, testvector=tv,
-                                           device=mesh.device)
-            IR.compute()
-            rec["active"] = [P._structured_active,
-                             IR.precond._structured_active]
-            for tag, call in (
-                    ("solver", lambda: S.apply_inverse(np.ones(K.shape[0]))),
-                    ("newton", lambda: IR.newton_step(
-                        IR.op64.vals, IR.solver.op.vals,
-                        np.ones(K.shape[0])))):
-                try:
-                    call()
-                    rec[tag] = None
-                except NotImplementedError as e:
-                    rec[tag] = str(e)
+            # 'Structured Apply' "Auto" on the sharded structured apply:
+            # f64 GMRES on Stokes-C 32^2, L = 1, full and restarted every
+            # 20; CG on Laplace 32^2, L = 2; the IR Newton step, cold and
+            # warm, and the IR solve, on the Stokes case
+            for tag, run in (
+                    ("gmres", lambda dist: _structured_solve(mesh, dist)),
+                    ("gmres_restart", lambda dist: _structured_solve(
+                        mesh, dist, restart=20)),
+                    ("cg", lambda dist: _structured_solve(
+                        mesh, dist, "Laplace", 2, "CG")),
+                    ("newton", lambda dist: _newton_step(
+                        mesh, dist, None, levels=1, structured="Auto")[:3]),
+                    ("newton_warm", lambda dist: _structured_ir(
+                        mesh, dist, "warm")),
+                    ("ir_solve", lambda dist: _structured_ir(
+                        mesh, dist, "solve"))):
+                S, x, res = run(True)
+                Ss = getattr(S, "solver", S)
+                rec[tag] = {"dist": _record(res, x),
+                            "sharded": Ss._dist_structured is mesh,
+                            "halo": Ss._dist is not None}
+                if rank0:
+                    _, x0, r0 = run(False)
+                    rec[tag]["rep"] = _record(r0, x0)
+        elif name.startswith("sapply_"):
+            rec = sharded_apply(mesh, name)
+        elif name == "structured_halo":
+            # the deflated and the complex solve with the structured
+            # program active: the JAX package takes no structured
+            # branch there, so the port takes the halo V-cycle too
+            for tag, run in (
+                    ("deflated", lambda dist: _deflated_solve(
+                        mesh, dist, "Auto")),
+                    ("complex", lambda dist: _complex_solve(
+                        mesh, dist, False, "Auto"))):
+                S, x, res = run(True)[:3]
+                rec[tag] = {"dist": _record(res, x),
+                            "active": S.precond._structured_active,
+                            "halo": S._dist is not None,
+                            "sharded": getattr(S, "_dist_structured",
+                                               None) is not None}
+                if rank0:
+                    _, x0, r0 = run(False)[:3]
+                    rec[tag]["rep"] = _record(r0, x0)
         elif name == "unshardable":
             # halo plans need levels >= 1: the direct-Schur mode cannot
             # be owner-sharded, so the solver warns and runs replicated
@@ -508,6 +578,107 @@ def dist_solves(mesh, which):
             rec["distributed"] = S.distributed
         out[name] = rec
     return out
+
+
+def structured_solve_params(dist, eq="Stokes-C", levels=1, method="GMRES",
+                            restart=None):
+    pd = _solve_params(eq, 32, levels, dist, method, maxiter=200)
+    pd["Preconditioner"]["Structured Apply"] = "Auto"
+    if restart is not None:
+        pd["Solver"]["Iterative Solver"]["Num Blocks"] = restart
+    return pd
+
+
+def _structured_solve(mesh, dist, *args, **kw):
+    params = Params(structured_solve_params(dist, *args, **kw))
+    K = create_matrix(params)
+    P = Preconditioner(K, params, testvector=create_testvector(params, K),
+                       device=mesh.device)
+    S = Solver(K, P, params, device=mesh.device)
+    x, res = S.apply_inverse(structured_rhs(K))
+    return S, _np(x), res
+
+
+def _structured_ir(mesh, dist, which):
+    """The IR solver of the structured Newton step (Stokes-C 32^2,
+    L = 1): `newton_step_warm` from the cold factors, or `solve`."""
+    from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    params = Params(mixed_params(dist, None, levels=1, structured="Auto"))
+    K = create_matrix(params)
+    S = IterativeRefinementSolver(K, params,
+                                  testvector=create_testvector(params, K),
+                                  device=mesh.device)
+    S.compute()
+    b = K @ np.random.default_rng(0).standard_normal(K.shape[0])
+    if which == "warm":
+        res, _ = S.newton_step_warm(S.op64.vals, S.solver.op.vals, b,
+                                    S.precond.factors)
+        return S, _np(res.x), res
+    x = S.solve(b)
+    return S, _np(x), S._last_result
+
+
+def structured_rhs(K):
+    """A consistent right-hand side: Stokes-C has a constant-pressure
+    null space (tests/test_dist_solve.py:test_dist_structured_solve)."""
+    return K @ np.random.default_rng(5).standard_normal(K.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the sharded structured apply
+# ---------------------------------------------------------------------------
+
+def sapply_dict(name):
+    """The parameters of a sharded-apply case: Stokes-C on a 2-D
+    Cartesian grid (`sapply_<nx>_l<levels>`), or configs/stokes_L2.xml
+    (3-D, B-grid transform, separator lengths 4, 4, 8) at 12 x 12 x 8,
+    whose level-0 box grid is 1 x 3 x 3 (`sapply_bgrid`)."""
+    if name == "sapply_bgrid":
+        import os
+        from hymls_tpu_torch.config import load_xml
+        from hymls_tpu_torch.tools.driver_cases import CONFIGS_DIR
+        d = load_xml(os.path.join(CONFIGS_DIR, "stokes_L2.xml")).to_dict()
+        d["Problem"]["nx"] = d["Problem"]["ny"] = 12
+        return d
+    nx, levels = (int(v) for v in name[len("sapply_"):].split("_l"))
+    d = precond_params("Stokes-C", nx, levels)
+    d["Preconditioner"]["Structured Apply"] = "Auto"
+    return d
+
+
+def sharded_apply(mesh, name):
+    """One f64 apply of the structured program sharded over the mesh
+    (Preconditioner.sharded_sapply_fn) against the replicated structured
+    apply, on the port's own factors; its collectives; and those
+    factors (numpy) for the parent to run the JAX package's sharded
+    apply on."""
+    K, P = build_precond(sapply_dict(name), mesh.device)
+    b = torch.as_tensor(np.random.default_rng(7).standard_normal(K.shape[0]),
+                        device=mesh.device)
+    x_rep = P.apply_inverse(b)
+    sapply = P.sharded_sapply_fn(mesh)
+    mesh.reset_counters()
+    x = sapply(P.apply_factors, P._aplans, b)
+    counters = {k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in mesh.counters.items()}
+    design = P._structured.sharded_apply_fn(mesh)
+    rec = {"x": _np(x), "x_rep": _np(x_rep), "b": _np(b),
+           "counters": counters, "active": P._structured_active,
+           "bgrid": P._bgrid is not None,
+           "slabs": [None if sl is None else (sl.ax, sl.sizes)
+                     for sl in design.slabs],
+           "traffic": design.traffic(x.element_size())}
+    if mesh.rank == 0:
+        rec["sfactors"] = _np_tree(P.apply_factors)
+    return rec
+
+
+def _np_tree(t):
+    if isinstance(t, dict):
+        return {k: _np_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_np_tree(v) for v in t]
+    return _np(t)
 
 
 def halo_and_gather_vcycle(mesh, dia_cases, vc_cases):

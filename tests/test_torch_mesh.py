@@ -68,12 +68,19 @@ def test_plans_equal_reference(both, ndev):
                 "build_matvec_plan")
 
 
-def test_collectives_on_three_ranks():
+@pytest.fixture(scope="module")
+def primitives():
+    """One 3-rank spawn: the primitives, then the slab rolls on the 3
+    ranks and on a mesh of ranks 0 and 1."""
+    return launch.run(D.primitives, 3, backend="gloo", device="cpu",
+                      timeout_s=120)
+
+
+def test_collectives_on_three_ranks(primitives):
     """ppermute on a ring and without wrap-around (the ends receive
     zeros), psum of real and complex tensors, tiled all_gather with
     zero-size shards, and the counters each call leaves."""
-    out = launch.run(D.primitives, 3, backend="gloo", device="cpu",
-                     timeout_s=120)
+    out = primitives
     xs = [o["x"] for o in out]
     for r, o in enumerate(out):
         np.testing.assert_array_equal(o["ring"], xs[(r - 1) % 3])
@@ -94,6 +101,29 @@ def test_collectives_on_three_ranks():
         assert c["psum"] == {"calls": 2, "bytes": 32 + 64}
         # the padded shard of the uneven gather, then the equal one
         assert c["all_gather"] == {"calls": 2, "bytes": 32 + 16}
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_slab_roll_equals_torch_roll(primitives, ranks):
+    """The sharded structured apply's roll (core/structured.py
+    roll_slab): every rank's rolled slab, gathered, is torch.roll of the
+    whole box grid bit for bit, the wrap from the last rank to the first
+    included, for shifts of both signs along each box axis, split
+    unevenly (7 planes: 4/3 on 2 ranks, 3/2/2 on 3) or evenly, down to
+    slabs of one plane; a shift wider than the smallest slab raises on
+    every rank."""
+    import torch
+    g = torch.as_tensor(D.roll_grid())
+    key = "rolls" if ranks == 3 else "rolls2"
+    outs = [o[key] for o in primitives[:ranks]]
+    for o in outs:
+        assert len(o) == 1 + 2 + 4 + 4        # K: ±1; J, I: ±1, ±2
+        for ax in (0, 1, 2):
+            for s in D.ROLL_SHIFTS:
+                if (ax, s) in o:
+                    np.testing.assert_array_equal(
+                        o[(ax, s)], torch.roll(g, s, dims=ax).numpy())
+        assert o["wide"] is not None and "crosses a slab" in o["wide"]
 
 
 def test_launch_raises_a_childs_exception():

@@ -366,10 +366,31 @@ def test_lower_triangular_structured_matches_reference():
     assert np.abs(yj - yt).max() <= 1e-10 * np.abs(yj).max()
 
 
-def test_sharded_apply_is_m12():
-    _, _, Pt = _pair("laplace16_L1", torch.float64)
-    with pytest.raises(NotImplementedError, match="M12"):
-        Pt._structured.sharded_apply_fn(mesh=None)
+@pytest.mark.parametrize("name", ["laplace32_L2", "laplace64x8_s16x4",
+                                  "stokes8cube_L1", "skew_stokes32_L2"])
+@pytest.mark.parametrize("ranks", [2, 3, 4])
+def test_sharded_split_follows_reference(name, ranks):
+    """Which levels the sharded apply splits, and how (no ranks needed:
+    the split is planned when the apply is made): as the reference's
+    sharded_apply_fn, a level not in "perm" mode whose largest box axis
+    (the first of equal ones) holds at least one box per rank, along
+    that axis; here in contiguous slabs that differ by at most one
+    plane, so no rank is left empty."""
+    import types
+    from hymls_tpu_torch.core.structured import ShardedApply
+    _, Pj, Pt = _pair(name, torch.float64)
+    mesh = types.SimpleNamespace(size=ranks, rank=0)
+    slabs = ShardedApply(Pt._structured, mesh).slabs
+    assert len(slabs) == len(Pj._structured.levels)
+    for L, sl in zip(Pj._structured.levels, slabs):
+        dims = [L.nK, L.nJ, L.nI]
+        if L.mode == "perm" or max(dims) < ranks:
+            assert sl is None
+            continue
+        assert sl.ax == dims.index(max(dims))
+        assert sum(sl.sizes) == dims[sl.ax] and len(sl.sizes) == ranks
+        assert max(sl.sizes) - min(sl.sizes) <= 1 and min(sl.sizes) >= 1
+        assert list(sl.sizes) == sorted(sl.sizes, reverse=True)
 
 
 def test_cavity16_newton_step_counts_match_reference():
