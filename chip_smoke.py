@@ -28,9 +28,10 @@ raises on failure (nonzero exit, no result line):
      timing, the DIA operators of phases 18, 19 and 21 as make_operator
      builds them (5 bands: the anisotropic and the Neumann Laplace at
      128^2, Laplace 64^2, and their transposes) and those of every
-     refinement of phase 22's configs as the driver builds them, in f64
-     and f32, with an aligned and an unaligned x, at the same
-     tolerances.  The dense matvec
+     refinement of phase 22's and phase 27's configs as the driver
+     builds them, with their transposes, in f64 and f32, with an
+     aligned and an unaligned x, at the same tolerances.  The dense
+     matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
      against torch.matmul at 2048 and 8192;
@@ -202,14 +203,30 @@ raises on failure (nonzero exit, no result line):
      equal is printed), its ppermute and all_gather calls and bytes
      equal to those the design states (ShardedApply.traffic).  The
      sharded and replicated step times are printed beside phase 25's
-     halo step, with the same label.
+     halo step, with the same label;
+ 27. the config suite: run_with_refinements on the card, as in phase
+     22, on every config of driver_cases.SUITE_CONFIGS (the rest of the
+     reference's suite that builds its own matrix: stokes4, stokes4_3D,
+     stokes5, stokes_L, stokes_THCM, deflation1_bordering,
+     laplace1_eigs_deflation, laplace_eigs, neumann, stokes6, stokes_L3,
+     stokes_L4, stokes_THCM3, stokes_THCM4, laplace2_eigs, darcy,
+     convdiff) at its own size, depth, factorizations and solves, in
+     f64: every 'Targets' met, every solve's iterations within 1 of the
+     JAX package's CPU count (ANCHOR_SUITE), JDQR's outer iterations
+     within 5, every solver on a DIA operator and the DIA kernel
+     launched; per config the apply "Auto" took, compute and solve s
+     per refinement and the kernel's launches are printed.  Then the
+     3-D two-level configs on the structured apply (SUITE_GENERIC) once
+     more with 'Structured Apply' False, under the same gates, their
+     solve s beside the structured run's.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
 
-Each of the paths 4-6 and 8-26 (phase 8 once per apply, phase 10's
+Each of the paths 4-6 and 8-27 (phase 8 once per apply, phase 10's
 Newton solve and trace apart; in phases 20-21 the solves on ELL
-operators launch no DIA kernel and say so; phase 22 once per config;
+operators launch no DIA kernel and say so; phases 22 and 27 once per
+config and run;
 phase 23's server is another process, whose launches are not counted
 here) is driven with the kernels' launch counts set to 0 just before it
 and read just after; each path
@@ -315,6 +332,23 @@ ANCHOR_DRIVER = {
     "laplace1_eigs": [[21], [21]],
     "stokes2_3D": [[112, 113]]}
 ANCHOR_DRIVER_JDQR = [45, 46]
+# CPU anchors of the JAX package for phase 27 (tests/_torch_anchors.py 27;
+# the port's CPU counts are the same), as ANCHOR_DRIVER; JDQR's outer
+# iterations per refinement (the port's: 44, 43; 34; 44)
+ANCHOR_SUITE = {
+    "stokes4": [[1]], "stokes4_3D": [[1]], "stokes5": [[2]],
+    "stokes_L": [[45]], "stokes_THCM": [[50]],
+    "deflation1_bordering": [[48, 48, 48, 48]],
+    "laplace1_eigs_deflation": [[20], [20]], "laplace_eigs": [[21]],
+    "neumann": [[36]], "stokes6": [[29, 29, 29, 29]], "stokes_L3": [[68]],
+    "stokes_L4": [[41]], "stokes_THCM3": [[65]], "stokes_THCM4": [[27]],
+    "laplace2_eigs": [[20]], "darcy": [[126]], "convdiff": [[36]]}
+ANCHOR_SUITE_JDQR = {"laplace1_eigs_deflation": [45, 46],
+                     "laplace_eigs": [37], "laplace2_eigs": [45]}
+# the 3-D two-level configs on which "Auto" takes the structured apply:
+# run once more on the generic one
+SUITE_GENERIC = ("stokes_L", "stokes_THCM", "stokes_L3", "stokes_L4",
+                 "stokes_THCM3")
 # CPU anchors of the JAX package for phase 25 on a virtual mesh of 4
 # devices (tests/_torch_anchors.py 25; the port's CPU counts on 4 gloo
 # ranks are there too): inner f32 iterations of the distributed IR
@@ -467,16 +501,18 @@ def solver_family_matrices():
 
 
 def driver_matrices():
-    """The matrices of every refinement of phase 22's configs, as the
-    driver builds them, each with its transpose (setup_deflation's second
-    operator); a matrix equal to one listed before it is left out."""
+    """The matrices of every refinement of phase 22's and phase 27's
+    configs, as the driver builds them, each with its transpose
+    (setup_deflation's second operator); a matrix equal to one listed
+    before it is left out."""
     import hashlib
     import hymls_tpu_torch.driver as drv
     from hymls_tpu_torch.config import load_xml
-    from hymls_tpu_torch.tools.driver_cases import (driver_params,
+    from hymls_tpu_torch.tools.driver_cases import (SUITE_CONFIGS,
+                                                    driver_params,
                                                     refined_matrices)
     out, seen = {}, set()
-    for name in ANCHOR_DRIVER:
+    for name in (*ANCHOR_DRIVER, *SUITE_CONFIGS):
         for p, K in refined_matrices(drv, driver_params(load_xml, name)):
             prob = p.sublist("Problem")
             size = "x".join(str(prob.get(k)) for k in ("nx", "ny", "nz")
@@ -1927,37 +1963,47 @@ def drive_eigen(device):
     return out
 
 
-def drive_driver(device):
-    """Phase 22: run_with_refinements on the card for every config of
-    ANCHOR_DRIVER, with the launch counts set to 0 just before each;
-    then the driver's command line in a subprocess."""
+def drive_configs(device, anchors, jdqr_anchors, tag, override=None):
+    """run_with_refinements on the card for every config of `anchors`
+    (per config, per refinement, the JAX package's CPU count of every
+    solve), with the launch counts set to 0 just before each: every
+    config's 'Targets' met, every count within 1 of its anchor, JDQR's
+    outer iterations within 5 of `jdqr_anchors[config]`, every solver
+    on a DIA operator and the DIA kernel launched.  `override` as in
+    driver_cases.driver_params.  Returns the records per config."""
     import hymls_tpu_torch.driver as drv
     from hymls_tpu_torch.config import load_xml
     from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.ops.spmv import DiaOperator
     from hymls_tpu_torch.solvers import eigen
-    from hymls_tpu_torch.tools.driver_cases import (driver_params,
+    from hymls_tpu_torch.tools.driver_cases import (constructed,
+                                                    driver_params,
                                                     eigen_results)
 
     out = {}
-    for name, anchor in ANCHOR_DRIVER.items():
-        params = driver_params(load_xml, name)
+    for name, anchor in anchors.items():
+        params = driver_params(load_xml, name, override)
         reset_counts()
-        with eigen_results(eigen) as got:
+        with eigen_results(eigen) as got, constructed(drv) as made:
             t, reps = wall_median(
                 lambda: drv.run_with_refinements(params, device=device), 1)
         launches = dia_matvec.launches
         outer = [r.iterations for r in got]
+        jd_anchor = jdqr_anchors.get(name, [])
         iters = [[s.iters for s in r.solves] for r in reps]
         relres = max(s.relres for r in reps for s in r.solves)
         relerr = max(s.relerr for r in reps for s in r.solves)
         failures = [f for r in reps for f in r.failures]
         times = [(r.solves[-1].compute_time, r.solves[-1].solve_time)
                  for r in reps]
-        jd = (f", JDQR outer {outer} (JAX CPU {ANCHOR_DRIVER_JDQR})"
-              if outer else "")
-        log(f"driver {name}: iterations {iters} (JAX CPU {anchor}), "
+        structured = [P._structured_active for P in made["P"]]
+        dia = any(isinstance(S.op, DiaOperator) for S in made["S"])
+        jd = f", JDQR outer {outer} (JAX CPU {jd_anchor})" if outer else ""
+        log(f"{tag} {name}: iterations {iters} (JAX CPU {anchor}), "
             f"max relres {relres:.2e}, max relerr {relerr:.2e}, "
             f"targets {'met' if not failures else failures}{jd}; "
+            f"{f'{override[0][-1]!r} {override[1]}, ' if override else ''}"
+            f"apply {['structured' if a else 'generic' for a in structured]}; "
             f"{t:.2f} s in all, (compute, solve) s per refinement "
             f"{[(round(c, 4), round(v, 4)) for c, v in times]}; "
             f"dia_spmv launches {launches}")
@@ -1965,21 +2011,28 @@ def drive_driver(device):
                 [len(a) for a in anchor] or any(
                     abs(x - y) > 1 for i, a in zip(iters, anchor)
                     for x, y in zip(i, a)):
-            raise RuntimeError(f"driver {name}: iterations {iters}, "
+            raise RuntimeError(f"{tag} {name}: iterations {iters}, "
                                f"JAX CPU {anchor}; {failures}")
-        if outer and (len(outer) != len(ANCHOR_DRIVER_JDQR) or any(
-                abs(x - y) > 5
-                for x, y in zip(outer, ANCHOR_DRIVER_JDQR))):
-            raise RuntimeError(f"driver {name}: JDQR outer {outer}, "
-                               f"JAX CPU {ANCHOR_DRIVER_JDQR}")
-        if launches <= 0:
-            raise RuntimeError(f"the driver's {name} path never "
-                               f"launched dia_spmv")
+        if len(outer) != len(jd_anchor) or any(
+                abs(x - y) > 5 for x, y in zip(outer, jd_anchor)):
+            raise RuntimeError(f"{tag} {name}: JDQR outer {outer}, "
+                               f"JAX CPU {jd_anchor}")
+        if not dia or launches <= 0:
+            raise RuntimeError(f"the {tag} {name} path launched dia_spmv "
+                               f"{launches} times (a DIA operator: {dia})")
         out[name] = {"iters": iters, "max_relres": relres,
                      "max_relerr": relerr, "seconds": t,
                      "compute_solve_s": times, "launches": launches,
+                     "structured": structured, "dia_operator": dia,
                      **({"jdqr_outer": list(outer)} if outer else {})}
+    return out
 
+
+def drive_driver(device):
+    """Phase 22: run_with_refinements on the card for every config of
+    ANCHOR_DRIVER; then the driver's command line in a subprocess."""
+    out = drive_configs(device, ANCHOR_DRIVER,
+                        {"laplace1_eigs": ANCHOR_DRIVER_JDQR}, "driver")
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "hymls_tpu_torch.driver",
                         os.path.join("configs", "laplace1.xml")],
@@ -1995,6 +2048,35 @@ def drive_driver(device):
                            f"\n{p.stderr[-4000:]}")
     out["command_line"] = {"config": "laplace1", "exit": p.returncode,
                            "seconds": t}
+    return out
+
+
+def drive_suite(device):
+    """Phase 27: every config of driver_cases.SUITE_CONFIGS through the
+    driver on the card (drive_configs, against ANCHOR_SUITE), then each
+    config of SUITE_GENERIC once more with 'Structured Apply' False."""
+    from hymls_tpu_torch.tools.driver_cases import SUITE_CONFIGS
+    t0 = time.perf_counter()
+    out = {"auto": drive_configs(
+        device, {n: ANCHOR_SUITE[n] for n in SUITE_CONFIGS},
+        ANCHOR_SUITE_JDQR, "suite")}
+    for name in SUITE_GENERIC:
+        if out["auto"][name]["structured"] != [True]:
+            raise RuntimeError(f"suite {name}: \"Auto\" took the generic "
+                               f"apply; SUITE_GENERIC lists configs on "
+                               f"the structured one")
+    out["generic"] = drive_configs(
+        device, {n: ANCHOR_SUITE[n] for n in SUITE_GENERIC}, {},
+        "suite generic", (("Preconditioner", "Structured Apply"), False))
+    for name in SUITE_GENERIC:
+        a, g = out["auto"][name], out["generic"][name]
+        log(f"suite {name}: solve s structured "
+            f"{a['compute_solve_s'][0][1]:.4f}, generic "
+            f"{g['compute_solve_s'][0][1]:.4f}; compute s "
+            f"{a['compute_solve_s'][0][0]:.4f} / "
+            f"{g['compute_solve_s'][0][0]:.4f}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 27 in {out['seconds']:.1f} s")
     return out
 
 
@@ -2513,6 +2595,9 @@ def main(argv=None) -> int:
     reset_counts()
     distributed = drive_distributed(device)
 
+    # -- 27. the config suite through the driver -----------------------------
+    suite = drive_suite(device)
+
     # the card again: a tool that keeps only the end of the output keeps it
     log(f"total {time.perf_counter() - t_start:.1f} s on "
         f"{gpu_name_and_power()}")
@@ -2523,6 +2608,9 @@ def main(argv=None) -> int:
         "baseline_device_us", "floor_us",
         "max_rel_err")} for tag, r in recs.items()}
         for shape, recs in dia.items()}
+    # per-path records beyond these stay in the log lines above: this
+    # line is kept short enough (~23 kB) that the last 24 kB of the
+    # output hold it whole
     log(json.dumps({"kernels": [{
         "name": "dia_spmv", "route": "cuda",
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
@@ -2553,7 +2641,10 @@ def main(argv=None) -> int:
             **{f"driver_{c}": driver[c]["launches"] for c in ANCHOR_DRIVER},
             "plan_cache_stokes32cube": cached["launches"],
             "halo_dia_4ranks": distributed["halo_dia_launches"],
-            "dist_structured": distributed["sharded"]["launches"]},
+            "dist_structured": distributed["sharded"]["launches"],
+            "suite": sum(r["launches"] for r in suite["auto"].values()),
+            **{f"suite_{c}": r["launches"]
+               for c, r in suite["auto"].items()}},
         "launches_per": {
             **{f"warm_step_{tag}": n for tag, n in warm_launches.items()},
             "bordered_solve": bordered["launches"],

@@ -3,7 +3,8 @@
 `driver_params` loads configs/<name>.xml with either package's
 `load_xml`; `refined_matrices` builds every matrix a config's refinement
 loop solves with; `eigen_results` records the eigenvalue results that
-the driver's report drops.  The modules of the package under test are
+the driver's report drops, and `constructed` the preconditioners and
+solvers it builds.  The modules of the package under test are
 passed in, so this module imports neither package's driver.
 """
 from __future__ import annotations
@@ -18,6 +19,18 @@ CONFIGS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 #: the configs chip_smoke.py phase 22 runs at their own sizes and depths
 DRIVER_CONFIGS = ("laplace1", "stokes2", "bordering1", "deflation1",
                   "laplace1_eigs", "stokes2_3D")
+
+#: the rest of the reference's config suite that builds its own matrix
+#: (tests/test_suite_parity.py): the configs it runs in tier-1, ...
+SUITE_TIER1 = ("stokes4", "stokes4_3D", "stokes5", "stokes_L",
+               "stokes_THCM", "deflation1_bordering",
+               "laplace1_eigs_deflation", "laplace_eigs", "neumann")
+#: ... and those it marks slow
+SUITE_SLOW = ("stokes6", "stokes_L3", "stokes_L4", "stokes_THCM3",
+              "stokes_THCM4", "laplace2_eigs", "darcy", "convdiff")
+#: the configs chip_smoke.py phase 27, tests/test_torch_suite.py and
+#: `tests/_torch_anchors.py 27` run
+SUITE_CONFIGS = SUITE_TIER1 + SUITE_SLOW
 
 
 def driver_params(load, name, override=None):
@@ -63,3 +76,23 @@ def eigen_results(eigen):
         yield got
     finally:
         eigen.JDQR.solve, eigen.shift_invert_eigs = jd_solve, si
+
+
+@contextlib.contextmanager
+def constructed(driver):
+    """Records, in the dict it yields, every `Preconditioner` ("P") and
+    `Solver` ("S") that the module `driver` (either package's driver)
+    constructs while the context is open, in order."""
+    got = {"P": [], "S": []}
+    classes = {"P": driver.Preconditioner, "S": driver.Solver}
+
+    def recorder(key):
+        def make(*a, **k):
+            got[key].append(classes[key](*a, **k))
+            return got[key][-1]
+        return make
+    driver.Preconditioner, driver.Solver = recorder("P"), recorder("S")
+    try:
+        yield got
+    finally:
+        driver.Preconditioner, driver.Solver = classes["P"], classes["S"]

@@ -1,15 +1,26 @@
-"""CPU anchors of chip_smoke.py's phases 18-22, 25 and 26: the deflated,
-complex and eigenvalue solves, the driver's configs and the distributed
-solves (the halo V-cycle's and the sharded structured apply's) at the
-sizes that script runs on the card, through the JAX package and through
-the port on the CPU.
+"""CPU anchors of chip_smoke.py's phases 18-22 and 25-27: the deflated,
+complex and eigenvalue solves, the driver's configs, the distributed
+solves (the halo V-cycle's and the sharded structured apply's) and the
+config suite at the sizes that script runs on the card, through the JAX
+package and through the port on the CPU.
 
     JAX_PLATFORMS=cpu python tests/_torch_anchors.py [phase ...]
 
 prints one line per case and package (iterations, residuals, counts);
-phases are 18, 19, 20, 21a, 21b, 21c, 22, 25, 26 (default: all).  Phases
-25 and 26 run the JAX package on a virtual mesh of 4 CPU devices and the
-port on 4 gloo ranks (parallel/launch.run).  The numbers go
+phases are 18, 19, 20, 21a, 21b, 21c, 22, 25, 26, 27, 27r (default:
+all).
+Phases 25 and 26 run the JAX package on a virtual mesh of 4 CPU devices
+and the port on 4 gloo ranks (parallel/launch.run).  Phase 27 runs every
+config of driver_cases.SUITE_CONFIGS (or those named after it:
+`27 darcy stokes6`) through both drivers at its own depth and prints,
+per config and package, every solve's iterations, relres and relerr at
+full precision, JDQR's outer iterations, which apply "Auto" took and
+whether the solves' operator is a DIA one.  Phase 27r splits the three
+configs that part by rounding (tests/test_torch_suite.py SELF_DIFF): the
+JAX driver's own relres / relerr change when every right-hand side
+moves one ulp up against the port's difference, stokes4_3D's bordered
+direct apply of both packages against a dense LU solve, and darcy's two
+GMRES histories iteration by iteration.  The numbers go
 into chip_smoke.py's ANCHOR_* constants and PERF.md section 4.
 """
 import os
@@ -251,6 +262,155 @@ def phase22():
         both(run)
 
 
+def phase27(*names):
+    """chip_smoke.py phase 27: the config suite at its own sizes and
+    refinement depths."""
+    import hymls_tpu.driver as HD
+    import hymls_tpu.solvers.eigen as HE
+    import hymls_tpu_torch.driver as TD
+    import hymls_tpu_torch.solvers.eigen as TE
+    from hymls_tpu.config import load_xml as jload
+    from hymls_tpu_torch.config import load_xml as tload
+    from hymls_tpu_torch.ops.spmv import DiaOperator
+    from hymls_tpu_torch.tools.driver_cases import (SUITE_CONFIGS, constructed,
+                                                    driver_params,
+                                                    eigen_results)
+    mods = {"jax": (HD, HE, jload, {}),
+            "port": (TD, TE, tload, {"device": "cpu"})}
+    for name in names or SUITE_CONFIGS:
+        print(f"27 suite: configs/{name}.xml, full depth")
+
+        def run(which):
+            drv, eig, load, kw = mods[which]
+            with eigen_results(eig) as got, constructed(drv) as made:
+                reps = drv.run_with_refinements(driver_params(load, name),
+                                                **kw)
+            solves = [[(s.iters, s.relres, s.relerr) for s in r.solves]
+                      for r in reps]
+            out = (f"iterations {[[s[0] for s in r] for r in solves]}, "
+                   f"(relres, relerr) {[[s[1:] for s in r] for r in solves]}"
+                   f", passed {all(r.passed for r in reps)}")
+            if got:
+                out += (f", JDQR outer {[r.iterations for r in got]}, "
+                        f"converged {[r.converged for r in got]}")
+            out += f", structured {[P._structured_active for P in made['P']]}"
+            if which == "port":
+                out += (", DIA operator "
+                        f"{[isinstance(S.op, DiaOperator) for S in made['S']]}")
+            return out
+        both(run)
+
+
+def phase27r():
+    """The configs of tests/test_torch_suite.py SELF_DIFF, split."""
+    import torch
+    import hymls_tpu.driver as HD
+    import hymls_tpu.solvers.krylov as JK
+    import hymls_tpu_torch.driver as TD
+    import hymls_tpu_torch.solvers.krylov as TK
+    from hymls_tpu.config import load_xml as jload
+    from hymls_tpu_torch.config import load_xml as tload
+    from hymls_tpu_torch.stencils import create_nullspace
+    from hymls_tpu_torch.tools.driver_cases import driver_params
+    from _torch_parity import no_plan_cache, problem, rel
+    import jax
+
+    base = HD.Solver
+
+    class OneUlpUp(base):
+        def apply_inverse(self, b, *a, **k):
+            return super().apply_inverse(
+                np.nextafter(np.asarray(b), np.inf), *a, **k)
+
+    def rel_diffs(ra, rb, key):
+        return [abs(getattr(x, key) - getattr(y, key)) / getattr(x, key)
+                for a, b in zip(ra, rb) for x, y in zip(a.solves, b.solves)]
+
+    for name in ("stokes4_3D", "stokes6", "darcy"):
+        print(f"27r {name}: relative differences per solve")
+        with no_plan_cache():
+            rj = HD.run_with_refinements(driver_params(jload, name))
+            HD.Solver = OneUlpUp
+            try:
+                ru = HD.run_with_refinements(driver_params(jload, name))
+            finally:
+                HD.Solver = base
+        rt = TD.run_with_refinements(driver_params(tload, name),
+                                     device="cpu")
+        for key in ("relres", "relerr"):
+            print(f"  {key}: JAX b vs b + 1 ulp "
+                  f"{[f'{x:.4e}' for x in rel_diffs(rj, ru, key)]}, "
+                  f"JAX vs port {[f'{x:.4e}' for x in rel_diffs(rj, rt, key)]}")
+
+    print("27r stokes4_3D: the bordered direct apply against numpy's dense "
+          "LU solve of [K V; V' 0]")
+    d = driver_params(tload, "stokes4_3D").to_dict()
+    K, tv = problem(d)
+    ns = create_nullspace(T.Params(d), K.shape[0])
+    Sj, St = solver_pair(d, K, tv, border=ns)
+    b = np.random.default_rng(3).standard_normal(K.shape[0])
+    t = np.zeros(ns.shape[1])
+    A = sp.bmat([[K, ns], [ns.T, None]]).toarray()
+    z = np.linalg.solve(A, np.concatenate([b, t]))
+    n = K.shape[0]
+    yj = [to_np(v) for v in Sj.precond.apply_inverse_bordered(b, t)]
+    yt = [to_np(v) for v in St.precond.apply_inverse_bordered(
+        torch.as_tensor(b), torch.as_tensor(t))]
+    print(f"  cond {np.linalg.cond(A):.3e}; x, s: JAX "
+          f"{rel(z[:n], yj[0]):.2e}, {rel(z[n:], yj[1]):.2e}; port "
+          f"{rel(z[:n], yt[0]):.2e}, {rel(z[n:], yt[1]):.2e}; JAX vs port "
+          f"{rel(yj[0], yt[0]):.2e}, {rel(yj[1], yt[1]):.2e}")
+
+    print("27r darcy: implicit GMRES residuals of both packages, from the "
+          "preconditioned operator's columns each records")
+    rec = {"jax": [], "port": []}
+    jg, tg = JK.gmres, TK.gmres
+
+    def jgmres(op, b, x0, prec=None, **kw):
+        def p(v):
+            y = prec(v)
+            jax.debug.callback(lambda a: rec["jax"].append(np.asarray(a)),
+                               y, ordered=True)
+            return y
+        return jg(op, b, x0, p, **kw)
+
+    def tgmres(op, b, x0, prec=None, **kw):
+        def p(v):
+            y = prec(v)
+            rec["port"].append(y.numpy().copy())
+            return y
+        return tg(op, b, x0, p, **kw)
+
+    d = driver_params(tload, "darcy").to_dict()
+    K, tv = problem(d)
+    JK.gmres, TK.gmres = jgmres, tgmres
+    try:
+        Sj, St = solver_pair(d, K, tv)
+        b = K @ np.random.default_rng(1234).standard_normal(K.shape[0])
+        Sj.apply_inverse(b)
+        St.apply_inverse(b)
+    finally:
+        JK.gmres, TK.gmres = jg, tg
+
+    def history(W):
+        """||r0 - W_k y|| / ||r0|| minimised over y, for each k: the
+        implicit residual of left-preconditioned GMRES, W[0] its
+        preconditioned initial residual, W[k] = M^-1 A v_(k-1)."""
+        W = np.array(W)
+        r0 = W[0]
+        out = []
+        for k in range(1, len(W)):
+            y = np.linalg.lstsq(W[1:k + 1].T, r0, rcond=None)[0]
+            out.append(np.linalg.norm(r0 - W[1:k + 1].T @ y)
+                       / np.linalg.norm(r0))
+        return np.array(out)
+    m = min(len(rec["jax"]), len(rec["port"]))
+    hj, ht = history(rec["jax"][:m]), history(rec["port"][:m])
+    for k in [0, 9, 20, 40, 60, 80, 100, 110, 120, m - 2]:
+        print(f"  iteration {k + 1:3d}: JAX {hj[k]:.6e} port {ht[k]:.6e} "
+              f"apart {abs(hj[k] - ht[k]) / hj[k]:.2e}")
+
+
 def phase25(ndev=4):
     """The distributed solves of chip_smoke.py phase 25 (a-c), at ndev
     ranks; hymls_tpu_torch/tools/dist_cases.py holds the cases."""
@@ -412,8 +572,12 @@ def phase26(ndev=4):
 
 PHASES = {"18": phase18, "19": phase19, "20": phase20, "21a": phase21a,
           "21b": phase21b, "21c": phase21c, "22": phase22, "25": phase25,
-          "26": phase26}
+          "26": phase26, "27": phase27, "27r": phase27r}
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or PHASES:
-        PHASES[name]()
+    args = sys.argv[1:]
+    if args[:1] == ["27"]:          # 27 [config ...]
+        phase27(*args[1:])
+    else:
+        for name in args or PHASES:
+            PHASES[name]()

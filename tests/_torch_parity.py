@@ -149,6 +149,34 @@ def assert_factors_agree(Pj, Pt, tol=1e-10, scale=None):
             assert err <= tol, f"coarse {key}: {err:.2e}"
 
 
+# -- the driver: the gate of tests/test_torch_driver.py and test_torch_suite.py
+
+# relres / relerr of both packages agree to this, relative, ...
+AGREE = 1e-8
+# ... plus this, absolute: the rounding of an f64 residual
+FLOOR = 1e-13
+
+
+def _agree(a, b, tol=AGREE):
+    return abs(a - b) <= tol * max(abs(a), abs(b)) + FLOOR
+
+
+def assert_same_solves(rj, rt, tol_relres=AGREE, tol_relerr=AGREE):
+    """Two driver RunReports: both passed their 'Targets', the same
+    number of solves, each converged in the same iterations, relres and
+    relerr agreeing to `tol_*` relative plus FLOOR."""
+    assert rt.passed, rt.failures
+    assert rj.passed, rj.failures
+    assert len(rj.solves) == len(rt.solves) > 0
+    for sj, st in zip(rj.solves, rt.solves):
+        assert st.iters == sj.iters
+        assert st.converged and sj.converged
+        assert _agree(sj.relres, st.relres, tol_relres), (sj.relres,
+                                                          st.relres)
+        assert _agree(sj.relerr, st.relerr, tol_relerr), (sj.relerr,
+                                                          st.relerr)
+
+
 def solve_both(d, K, Pj, Pt, b, d_ref=None):
     """f64 Krylov solves of K x = b through both packages' `Solver`;
     returns ((x, result) of the reference, (x, result) of the port)."""

@@ -2,7 +2,8 @@
 
 `run_case` of both packages on the same configs at their base size (no
 refinement): equal iteration counts on every solve, relres and relerr
-to 1e-8 relative or 1e-13 absolute (the rounding of an f64 residual:
+to 1e-8 relative plus 1e-13 absolute (`assert_same_solves` of
+tests/_torch_parity.py; the rounding of an f64 residual:
 laplace1's relres, 1.1e-10, differs by 5.5e-18 between the packages,
 and stokes3's direct solve leaves 5.5e-14 in the reference, 1.9e-14 in
 the port), every 'Targets' check passed.  Then the
@@ -30,14 +31,10 @@ from hymls_tpu_torch.tools.driver_cases import (CONFIGS_DIR, driver_params,
                                                 eigen_results)
 from hymls_tpu_torch.utils.io import read_hdf5
 
-from _torch_parity import rel
+from _torch_parity import assert_same_solves, rel
 
 PARITY = ["laplace1", "stokes3", "bordering1", "laplace1_deflation",
           "laplace1_eigs", "stokes_L2"]
-# relres / relerr of both packages agree to this, relative, ...
-AGREE = 1e-8
-# ... plus this, absolute: the rounding of an f64 residual
-FLOOR = 1e-13
 
 WARM = (("Driver", "Warm Recompute"), True)
 ARNOLDI = (("Driver", "Eigenvalues", "Use Arnoldi"), True)
@@ -71,26 +68,11 @@ def _port(name, override=None):
                   device="cpu")
 
 
-def _agree(a, b):
-    return abs(a - b) <= AGREE * max(abs(a), abs(b)) + FLOOR
-
-
-def _assert_same_solves(rj, rt):
-    assert rt.passed, rt.failures
-    assert rj.passed, rj.failures
-    assert len(rj.solves) == len(rt.solves) > 0
-    for sj, st in zip(rj.solves, rt.solves):
-        assert st.iters == sj.iters
-        assert st.converged and sj.converged
-        assert _agree(sj.relres, st.relres), (sj.relres, st.relres)
-        assert _agree(sj.relerr, st.relerr), (sj.relerr, st.relerr)
-
-
 @pytest.mark.parametrize("name", PARITY)
 def test_run_case_matches_reference(name, reference):
     rj, ej = reference(name)
     rt, et = _port(name)
-    _assert_same_solves(rj, rt)
+    assert_same_solves(rj, rt)
     assert (ej is None) == (et is None)
     if et is not None:          # laplace1_eigs: JDQR
         assert et.converged == ej.converged == 10
@@ -106,7 +88,7 @@ def test_run_case_matches_reference(name, reference):
 def test_warm_recompute_matches_reference(reference):
     rj, _ = reference("laplace1", WARM)
     rt, _ = _port("laplace1", WARM)
-    _assert_same_solves(rj, rt)
+    assert_same_solves(rj, rt)
 
 
 def test_arnoldi_branch_matches_reference(reference):
@@ -114,7 +96,7 @@ def test_arnoldi_branch_matches_reference(reference):
     the driver's sort and truncation of the result."""
     rj, ej = reference("laplace1_eigs", ARNOLDI)
     rt, et = _port("laplace1_eigs", ARNOLDI)
-    _assert_same_solves(rj, rt)
+    assert_same_solves(rj, rt)
     assert et.iterations == ej.iterations == -1
     assert et.converged == ej.converged == 10
     assert et.values.shape == ej.values.shape == (10,)
