@@ -8,8 +8,8 @@ raises on failure (nonzero exit, no result line):
 
   1. device: CUDA must be present; prints the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compiles every kernel of hymls_tpu_torch/csrc (dia_spmv.cu,
-     dense_matvec.cu) with nvcc, one process per source, all started
+  2. build: compiles every kernel of hymls_tpu_torch/csrc (dia_spmv.cu
+     with K1 and its multi-column form, dense_matvec.cu) with nvcc, one process per source, all started
      together (and, with --baseline DIR, DIR's dia_spmv.cu beside them);
   3. kernels: each kernel against its plain torch version on the card.
      The DIA SpMV at six shapes from the port's generators -- cavity64
@@ -30,7 +30,14 @@ raises on failure (nonzero exit, no result line):
      128^2, Laplace 64^2, and their transposes) and those of every
      refinement of phase 22's and phase 27's configs as the driver
      builds them, with their transposes, in f64 and f32, with an
-     aligned and an unaligned x, at the same tolerances.  The dense
+     aligned and an unaligned x, at the same tolerances.  K1's
+     multi-column form (dia_matmat, the deflation setups' batched DIA
+     products) on all those operators at every block size of
+     MATMAT_BLOCKS, in f64 and f32 (per element within 4 ulp of
+     sum_k |bands x|), each row equal to K1's on that row bit for bit;
+     at phases 18's and 19's operators and block sizes its device time
+     by CUDA-graph replay beside its bound, B launches of K1, the plain
+     version and cuSPARSE's SpMM (torch.sparse.mm).  The dense
      matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
@@ -117,12 +124,14 @@ raises on failure (nonzero exit, no result line):
      for, held the same way;
  18. deflated solve: tests/test_variants.py's anisotropic Laplace at
      128^2 (n = 16384), L = 2, GMRES to 1e-10, 8 deflated modes:
-     setup_deflation() (the subspace iteration, whose block applies are
-     run column by column, then the 8 projected solves) and one
-     solve; true relres <= 5e-9, iterations within 2 of the JAX
-     package's CPU count and no more than without deflation, the
-     subspace iteration converged (rel <= 1e-5) before its cap,
-     V'V = I to 1e-10;
+     setup_deflation() (the subspace iteration, one block apply of
+     kp = 14 columns per iteration, then the 8 projected solves as one
+     batched GMRES) and one solve; true relres <= 5e-9, iterations
+     within 2 of the JAX package's CPU count and no more than without
+     deflation, the subspace iteration converged (rel <= 1e-5) before
+     its cap, V'V = I to 1e-10; the setup's split, block applies and
+     launches of K1 and dia_matmat are printed, and the setup must have
+     launched dia_matmat, the solve K1;
  19. bordered + deflated: tests/test_combos.py's Neumann Laplace with
      the constant null space as border at 128^2, L = 2, 6 modes of the
      augmented system; relres and error <= 5e-9, iterations as in 18;
@@ -215,7 +224,9 @@ raises on failure (nonzero exit, no result line):
      JAX package's CPU count (ANCHOR_SUITE), JDQR's outer iterations
      within 5, every solver on a DIA operator and the DIA kernel
      launched; per config the apply "Auto" took, compute and solve s
-     per refinement and the kernel's launches are printed.  Then the
+     per refinement and the kernels' launches are printed, and per
+     deflation setup (here and in phase 22) its split as in phase 18;
+     each must have launched dia_matmat.  Then the
      3-D two-level configs on the structured apply (SUITE_GENERIC) once
      more with 'Structured Apply' False, under the same gates, their
      solve s beside the structured run's.
@@ -232,9 +243,9 @@ here) is driven with the kernels' launch counts set to 0 just before it
 and read just after; each path
 whose operator is a DIA operator must have launched the kernel.  Phase
 7 takes 2 rounds (medians of 4) and phase 8's times 3 rounds (medians
-of 6) so that all phases fit.  The line before the last is
-the kernels' JSON record; the last line is {"ok": true, "device":
-{...}}.
+of 6) so that all phases fit.  The per-phase records are one JSON
+line ({"records": ...}); the line before the last is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -694,6 +705,151 @@ def check_dia_kernel(device, baseline=None):
     return sweep
 
 
+#: the block sizes of the deflation setups' DIA products: the k projected
+#: solves of phases 18 (k = 8), 19 (6) and 22/27 (deflation1 and
+#: deflation1_bordering 10, laplace1_eigs_deflation 5), and the
+#: subspace iteration's kp = k + 6 where a mass matrix or the B-grid
+#: transform puts a DIA product into the block apply
+MATMAT_BLOCKS = (5, 6, 8, 10, 11, 12, 14, 16)
+#: dia_matmat against its plain version, per element, in units of the
+#: largest partial sum (sum_k |bands * x| bounds every partial sum): 4
+#: ulp of the type.  The plain version rounds every product, the kernel
+#: fuses it, so the two part by a few ulp of that sum; relative to max|y|
+#: the f32 error passes 2e-7 where the terms cancel (stokes_L3's
+#: transpose on the card)
+MATMAT_TOL = {torch.float64: 4 * 2.0 ** -52, torch.float32: 4 * 2.0 ** -23}
+
+
+def hold_dia_matmat(bands, X, offs, what):
+    """dia_matmat against its plain version and each row against K1 on
+    that row; raises beyond MATMAT_TOL or where a row differs from K1 in
+    any bit.  Returns (max abs err, err in the tolerance's scale)."""
+    from hymls_tpu_torch.ops.dia_spmv import (dia_matmat_packed,
+                                              dia_matmat_reference,
+                                              dia_matvec_packed)
+    Y = dia_matmat_packed(bands, X, offs)
+    Y_ref = dia_matmat_reference(bands, X, offs.offsets)
+    torch.cuda.synchronize()
+    diff = (Y - Y_ref).abs()
+    scale = dia_matmat_reference(bands.abs(), X.abs(), offs.offsets)
+    err = float((diff / scale.clamp_min(1e-300)).max())
+    if not (err <= MATMAT_TOL[X.dtype]) or not bool(torch.isfinite(Y).all()):
+        raise RuntimeError(f"dia_matmat {what} disagrees with its plain "
+                           f"version: {err:.3e}")
+    for j in range(X.shape[0]):
+        if not torch.equal(Y[j], dia_matvec_packed(bands, X[j], offs)):
+            raise RuntimeError(f"dia_matmat {what}: row {j} differs from "
+                               f"dia_spmv on that row")
+    return float(diff.max()), err
+
+
+def check_dia_matmat(device):
+    """Phase 3: K1's multi-column form against its plain version on every
+    DIA operator of phases 18, 19, 21, 22 and 27 (as make_operator
+    builds them, with their transposes) at every block size of
+    MATMAT_BLOCKS, in f64 and f32, each row also against K1 bit for bit;
+    then, at phase 18's and 19's operators and block sizes, the device
+    time per launch by CUDA-graph replay beside its bound, B launches of
+    K1 on the rows, the plain version and cuSPARSE's SpMM
+    (torch.sparse.mm on the CSR tensor, timed here only)."""
+    from hymls_tpu_torch.ops.dia_spmv import (dia_matmat_packed,
+                                              dia_matmat_reference,
+                                              dia_matvec_packed)
+    from hymls_tpu_torch.ops.spmv import make_operator
+    from hymls_tpu_torch.tools.dia_spmv_sweep import (
+        HBM_BYTES_PER_S, PEAK_FLOPS, capture, replay_us)
+
+    rng = np.random.default_rng(17)
+    mats = {**solver_family_matrices(), **driver_matrices()}
+    worst = {torch.float64: (0.0, 0.0), torch.float32: (0.0, 0.0)}
+    for name, K in mats.items():
+        op = make_operator(K, dtype=torch.float64, device=device)
+        b64, offs, n = op.prepare(op.vals), op.packed, K.shape[0]
+        X64 = torch.as_tensor(rng.standard_normal((max(MATMAT_BLOCKS), n)),
+                              device=device)
+        for dtype in (torch.float64, torch.float32):
+            bands, Xd = b64.to(dtype), X64.to(dtype)
+            for nb in MATMAT_BLOCKS:
+                e = hold_dia_matmat(bands, Xd[:nb].contiguous(), offs,
+                                    f"{name} B={nb} {dtype}")
+                worst[dtype] = (max(worst[dtype][0], e[0]),
+                                max(worst[dtype][1], e[1]))
+    log(f"dia_matmat: {len(mats)} operators x B in {list(MATMAT_BLOCKS)}: "
+        f"err f64 {worst[torch.float64][1] / 2.0 ** -52:.2f}, f32 "
+        f"{worst[torch.float32][1] / 2.0 ** -23:.2f} ulp of sum|terms| "
+        f"(tol 4); every row equal to dia_spmv's bit for bit")
+
+    timed = {}
+    for name, blocks in ((f"aniso{DEFL_NX}", (8, 14)),
+                         (f"neumann{DEFL_NX}", (6, 12))):
+        K = mats[name]
+        op = make_operator(K, dtype=torch.float64, device=device)
+        b64, offs, n = op.prepare(op.vals), op.packed, K.shape[0]
+        crow = torch.as_tensor(K.indptr.astype(np.int32), device=device)
+        col = torch.as_tensor(K.indices.astype(np.int32), device=device)
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            bands = b64.to(dtype)
+            A = torch.sparse_csr_tensor(
+                crow, col, torch.as_tensor(K.data, dtype=dtype,
+                                           device=device), (n, n))
+            for nb in blocks:
+                X = torch.as_tensor(rng.standard_normal((nb, n)),
+                                    dtype=dtype, device=device)
+                XT = X.T.contiguous()
+                Y = dia_matmat_packed(bands, X, offs)
+                lib_diff = float((torch.sparse.mm(A, XT).T - Y).abs().max()
+                                 ) / max(float(Y.abs().max()), 1e-300)
+                if not lib_diff <= 10 * TOL[dtype]:
+                    raise RuntimeError(f"cuSPARSE SpMM {name} B={nb} {tag} "
+                                       f"disagrees with dia_matmat: "
+                                       f"{lib_diff:.3e}")
+                rows = [X[j] for j in range(nb)]
+                graphs = {
+                    "kernel": capture(
+                        lambda: dia_matmat_packed(bands, X, offs)),
+                    "k1_rows": capture(lambda: [
+                        dia_matvec_packed(bands, r, offs) for r in rows]),
+                    "plain": capture(lambda: dia_matmat_reference(
+                        bands, X, offs.offsets))}
+                try:
+                    graphs["library"] = capture(
+                        lambda: torch.sparse.mm(A, XT))
+                except RuntimeError as e:
+                    # timed with its host issue instead (events around
+                    # back-to-back calls), and said so
+                    log(f"cuSPARSE SpMM is not capturable ({e}); timed "
+                        f"by events")
+                dev = replay_us(graphs)
+                if "library" not in dev:
+                    dev["library"] = event_ms(
+                        lambda: torch.sparse.mm(A, XT), reps=20) * 1e3
+                del graphs
+                size = torch.finfo(dtype).bits // 8
+                t_bytes = (offs.k * n + 2 * nb * n) * size / HBM_BYTES_PER_S
+                t_ops = 2 * offs.k * n * nb / PEAK_FLOPS[dtype]
+                bound_us = max(t_bytes, t_ops) * 1e6
+                r = {"device_us": dev["kernel"], "bound_us": bound_us,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "roofline_share": bound_us / dev["kernel"],
+                     "k1_rows_us": dev["k1_rows"],
+                     "plain_us": dev["plain"], "library_us": dev["library"],
+                     "library_rel_diff": lib_diff}
+                timed[f"{name} B={nb} {tag}"] = r
+                log(f"dia_matmat {tag} {name} B={nb}: n={n} k={offs.k}; "
+                    f"device us/launch: kernel {r['device_us']:.3f}, "
+                    f"{nb} K1 launches {r['k1_rows_us']:.3f}, plain "
+                    f"{r['plain_us']:.3f}, cuSPARSE SpMM "
+                    f"{r['library_us']:.3f} (rel diff {lib_diff:.1e}); "
+                    f"bound {bound_us:.3f} ({r['bound_by']}), roofline "
+                    f"share {r['roofline_share']:.3f}")
+            del A
+    return {"max_abs_err": max(w[0] for w in worst.values()),
+            "f64_err_ulp": worst[torch.float64][1] / 2.0 ** -52,
+            "f32_err_ulp": worst[torch.float32][1] / 2.0 ** -23,
+            "timed": timed}
+
+
 def check_dense_matvec(device):
     """Phase 3: the dense matvec kernel against its plain version on
     the card, at the probe's shape and on ragged ones; at n = 2048 and
@@ -788,8 +944,77 @@ def drive_main_path(device, structured):
 def reset_counts() -> None:
     """Every kernel's launch count set to 0, just before a path runs."""
     from hymls_tpu_torch.ops.dense_matvec import dense_matvec
-    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
-    dia_matvec.launches = dense_matvec.launches = 0
+    from hymls_tpu_torch.ops.dia_spmv import dia_matmat, dia_matvec
+    dia_matvec.launches = dia_matmat.launches = dense_matvec.launches = 0
+
+
+@contextlib.contextmanager
+def deflation_setups():
+    """Records each Solver.setup_deflation run inside the block (a
+    'Deflated Subspace Dimension' above 0): its seconds split into the
+    subspace iteration and the k projected solves, the block applies,
+    the batched GMRES's iterations per column, and the launches of K1
+    (dia_spmv) and of its multi-column form (dia_matmat) inside it."""
+    import hymls_tpu_torch.solvers.deflation as defl
+    from hymls_tpu_torch.ops.dia_spmv import dia_matmat, dia_matvec
+    from hymls_tpu_torch.solvers import krylov
+    from hymls_tpu_torch.solvers.solver import Solver
+
+    recs = []
+    setup, space, gmres_b = (Solver.setup_deflation,
+                             defl.compute_deflation_space_device,
+                             krylov.gmres_batched)
+
+    def timed_space(*a, **kw):
+        t, V = wall_median(lambda: space(*a, **kw), 1)
+        recs[-1]["subspace_s"] = t
+        return V
+
+    def counted_gmres(*a, **kw):
+        res = gmres_b(*a, **kw)
+        recs[-1]["gmres_iters"] = res.iters.tolist()
+        return res
+
+    def timed_setup(self, *a, **kw):
+        k = self.params.sublist("Solver").get(
+            "Deflated Subspace Dimension", 0)
+        if k <= 0:
+            return setup(self, *a, **kw)
+        rec = {"k": k, "subspace_s": 0.0, "gmres_iters": []}
+        recs.append(rec)
+        k1, mm = dia_matvec.launches, dia_matmat.launches
+        t, out = wall_median(lambda: setup(self, *a, **kw), 1)
+        info = self._defl_info
+        kp = min(k + 6, max(self.op.n - 2, 1))
+        rec.update(setup_s=t, projected_solves_s=t - rec["subspace_s"],
+                   applies=info.get("applies"), rel=info.get("rel"),
+                   block_applies=info.get("applies", 0) // kp,
+                   k1_launches=dia_matvec.launches - k1,
+                   matmat_launches=dia_matmat.launches - mm)
+        return out
+
+    Solver.setup_deflation = timed_setup
+    defl.compute_deflation_space_device = timed_space
+    krylov.gmres_batched = counted_gmres
+    try:
+        yield recs
+    finally:
+        Solver.setup_deflation = setup
+        defl.compute_deflation_space_device = space
+        krylov.gmres_batched = gmres_b
+
+
+def setup_line(rec) -> str:
+    """One deflation setup of `deflation_setups` in words."""
+    its = rec["gmres_iters"]
+    return (f"setup {rec['setup_s']:.4f} s (subspace iteration "
+            f"{rec['subspace_s']:.4f} s: {rec['block_applies']} block "
+            f"applies, {rec['applies']} column applies, rel "
+            f"{rec['rel']:.2e}; the {rec['k']} projected solves "
+            f"{rec['projected_solves_s']:.4f} s in one batched GMRES of "
+            f"{max(its) if its else 0} iterations, per column {its}); "
+            f"launches in the setup: dia_spmv {rec['k1_launches']}, "
+            f"dia_matmat {rec['matmat_launches']}")
 
 
 def check_main_path(device, structured, tag):
@@ -1640,9 +1865,8 @@ def drive_deflated(device, tag, K, b, params_of, anchor, anchor_plain, k,
     and no more than without deflation, the subspace iteration converged
     (rel <= 1e-5) before its 60-iteration cap, V'V = I to 1e-10.
     Returns the numbers."""
-    import hymls_tpu_torch.solvers.deflation as defl
     from hymls_tpu_torch import Preconditioner, Solver
-    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.ops.dia_spmv import dia_matmat, dia_matvec
     from hymls_tpu_torch.stencils import create_testvector
 
     def make(kk):
@@ -1659,39 +1883,28 @@ def drive_deflated(device, tag, K, b, params_of, anchor, anchor_plain, k,
     t_plain, (x0, r0) = wall_median(lambda: S0.apply_inverse(b), 1)
     S = make(k)
     reset_counts()
-    sub_s = []
-    orig = defl.compute_deflation_space_device
-
-    def timed(*args, **kwargs):
-        t, V = wall_median(lambda: orig(*args, **kwargs), 1)
-        sub_s.append(t)
-        return V
-    defl.compute_deflation_space_device = timed
-    try:
-        t_setup, _ = wall_median(S.setup_deflation, 1)
-    finally:
-        defl.compute_deflation_space_device = orig
+    with deflation_setups() as setups:
+        S.setup_deflation()
+    rec = setups[0]
     setup_launches = dia_matvec.launches
     t_solve, (x, res) = wall_median(lambda: S.apply_inverse(b), 1)
     launches = dia_matvec.launches
+    matmat_launches = dia_matmat.launches
     info, V = S._defl_info, S._deflation.V
     kp = k + 6
     relres = true_relres(K, x, b)
     ortho = float(np.abs(V.T @ V - np.eye(k)).max())
     err = None if x_ex is None else float(
         np.linalg.norm(x.cpu().numpy() - x_ex) / np.linalg.norm(x_ex))
-    log(f"{tag}: n={K.shape[0]}, k={k}; setup {t_setup:.4f} s (subspace "
-        f"iteration {sub_s[0]:.4f} s: {info['applies'] // kp} block applies"
-        f" of {kp} columns, {info['applies']} applies run one by one, "
-        f"rel {info['rel']:.2e}; the {k} projected solves "
-        f"{t_setup - sub_s[0]:.4f} s), {setup_launches} dia_spmv launches;"
-        f" max|V'V - I| {ortho:.1e}")
+    log(f"{tag}: n={K.shape[0]}, k={k}, kp={kp}; {setup_line(rec)}; "
+        f"max|V'V - I| {ortho:.1e}")
     log(f"{tag} solve: {res.iters} iterations (JAX CPU {anchor}; without "
         f"deflation {r0.iters}, JAX CPU {anchor_plain}, {t_plain:.4f} s), "
         f"true relres {relres:.3e}"
         f"{'' if err is None else f', error {err:.3e}'}, {t_solve:.4f} s, "
         f"{t_solve / max(res.iters, 1) * 1e3:.3f} ms per iteration; "
-        f"dia_spmv launches {launches - setup_launches}")
+        f"dia_spmv launches {launches - setup_launches}, dia_matmat "
+        f"{matmat_launches - rec['matmat_launches']}")
     if tuple(x.shape) != (K.shape[0],) or not bool(torch.isfinite(x).all()):
         raise RuntimeError(f"{tag}: malformed solution")
     if not relres <= 5e-9 or (err is not None and not err <= 5e-9):
@@ -1705,17 +1918,22 @@ def drive_deflated(device, tag, K, b, params_of, anchor, anchor_plain, k,
             not ortho <= 1e-10:
         raise RuntimeError(f"{tag}: subspace iteration {info}, "
                            f"max|V'V - I| {ortho:.1e}")
-    if setup_launches <= 0 or launches <= setup_launches:
-        raise RuntimeError(f"the {tag} path never launched dia_spmv")
+    if rec["matmat_launches"] <= 0:
+        raise RuntimeError(f"the {tag} setup never launched dia_matmat")
+    if launches <= setup_launches:
+        raise RuntimeError(f"the {tag} solve never launched dia_spmv")
     return {"n": K.shape[0], "k": k, "iters": res.iters,
             "iters_plain": r0.iters, "relres": relres, "error": err,
             "applies": info["applies"], "block_applies":
-            info["applies"] // kp, "rel": info["rel"], "setup_s": t_setup,
-            "subspace_s": sub_s[0], "projected_solves_s":
-            t_setup - sub_s[0], "solve_s": t_solve, "plain_solve_s": t_plain,
+            info["applies"] // kp, "rel": info["rel"],
+            "setup_s": rec["setup_s"], "subspace_s": rec["subspace_s"],
+            "projected_solves_s": rec["projected_solves_s"],
+            "gmres_iters": rec["gmres_iters"], "solve_s": t_solve,
+            "plain_solve_s": t_plain,
             "setup_launches": setup_launches,
+            "setup_matmat_launches": rec["matmat_launches"],
             "solve_launches": launches - setup_launches,
-            "launches": launches}
+            "launches": launches, "matmat_launches": matmat_launches}
 
 
 def drive_deflated_aniso(device):
@@ -1973,7 +2191,7 @@ def drive_configs(device, anchors, jdqr_anchors, tag, override=None):
     driver_cases.driver_params.  Returns the records per config."""
     import hymls_tpu_torch.driver as drv
     from hymls_tpu_torch.config import load_xml
-    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.ops.dia_spmv import dia_matmat, dia_matvec
     from hymls_tpu_torch.ops.spmv import DiaOperator
     from hymls_tpu_torch.solvers import eigen
     from hymls_tpu_torch.tools.driver_cases import (constructed,
@@ -1984,10 +2202,12 @@ def drive_configs(device, anchors, jdqr_anchors, tag, override=None):
     for name, anchor in anchors.items():
         params = driver_params(load_xml, name, override)
         reset_counts()
-        with eigen_results(eigen) as got, constructed(drv) as made:
+        with eigen_results(eigen) as got, constructed(drv) as made, \
+                deflation_setups() as setups:
             t, reps = wall_median(
                 lambda: drv.run_with_refinements(params, device=device), 1)
         launches = dia_matvec.launches
+        matmat = dia_matmat.launches
         outer = [r.iterations for r in got]
         jd_anchor = jdqr_anchors.get(name, [])
         iters = [[s.iters for s in r.solves] for r in reps]
@@ -2006,7 +2226,13 @@ def drive_configs(device, anchors, jdqr_anchors, tag, override=None):
             f"apply {['structured' if a else 'generic' for a in structured]}; "
             f"{t:.2f} s in all, (compute, solve) s per refinement "
             f"{[(round(c, 4), round(v, 4)) for c, v in times]}; "
-            f"dia_spmv launches {launches}")
+            f"dia_spmv launches {launches}, dia_matmat {matmat}")
+        for i, rec in enumerate(setups):
+            log(f"{tag} {name} deflation {i}: k={rec['k']}; "
+                f"{setup_line(rec)}")
+        if any(rec["matmat_launches"] <= 0 for rec in setups):
+            raise RuntimeError(f"a deflation setup of {tag} {name} never "
+                               f"launched dia_matmat")
         if failures or [len(i) for i in iters] != \
                 [len(a) for a in anchor] or any(
                     abs(x - y) > 1 for i, a in zip(iters, anchor)
@@ -2023,6 +2249,8 @@ def drive_configs(device, anchors, jdqr_anchors, tag, override=None):
         out[name] = {"iters": iters, "max_relres": relres,
                      "max_relerr": relerr, "seconds": t,
                      "compute_solve_s": times, "launches": launches,
+                     "matmat_launches": matmat,
+                     "deflation_setups": setups,
                      "structured": structured, "dia_operator": dia,
                      **({"jdqr_outer": list(outer)} if outer else {})}
     return out
@@ -2485,6 +2713,7 @@ def main(argv=None) -> int:
     # -- 3. kernels against their plain versions ----------------------------
     dia = check_dia_kernel(device, baseline)
     dia_solver_err = check_dia_solver_shapes(device)
+    matmat = check_dia_matmat(device)
     mv = check_dense_matvec(device)
 
     # -- 4. probe path ----------------------------------------------------------
@@ -2608,9 +2837,23 @@ def main(argv=None) -> int:
         "baseline_device_us", "floor_us",
         "max_rel_err")} for tag, r in recs.items()}
         for shape, recs in dia.items()}
-    # per-path records beyond these stay in the log lines above: this
-    # line is kept short enough (~23 kB) that the last 24 kB of the
-    # output hold it whole
+    # the per-phase records on a line of their own: the kernels line
+    # below is kept short enough that the last 24 kB of the output hold
+    # it whole
+    log(json.dumps({"records": {
+        "paths": times, "warm": warm_times, "bordered": bordered,
+        "continuation": cont, "stokesB_64": stokesB,
+        "stokes128_L2": stokes128, "restart": restart, "direct": direct,
+        "bgrid": bgrid, "factor_precision": factor64,
+        "stokes32cube_skew_L2": stokes32, "deflated": deflated,
+        "bordered_deflated": bordered_deflated, "complex": cplx,
+        "eigen": eigen, "driver": driver, "bridge": bridge,
+        "plan_cache": cached, "distributed": distributed}}))
+    mm18 = matmat["timed"][f"aniso{DEFL_NX} B=8 f64"]
+    defl_configs = {f"{phase}_{c}": r for phase, recs in (
+        ("driver", driver), ("suite", suite["auto"]))
+        for c, r in recs.items() if isinstance(r, dict)
+        and r.get("deflation_setups")}
     log(json.dumps({"kernels": [{
         "name": "dia_spmv", "route": "cuda",
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
@@ -2697,15 +2940,49 @@ def main(argv=None) -> int:
         **{f"call_ms_n{n}": mv[n]["ms"] for n in MV_SIZES},
         **{f"plain_call_ms_n{n}": mv[n]["plain_ms"] for n in MV_SIZES},
         "probe_ms_per_iter": probe,
-        "probe_ms_per_iter_n8192": probe_big}],
-        "paths": times, "warm": warm_times, "bordered": bordered,
-        "continuation": cont, "stokesB_64": stokesB,
-        "stokes128_L2": stokes128, "restart": restart, "direct": direct,
-        "bgrid": bgrid, "factor_precision": factor64,
-        "stokes32cube_skew_L2": stokes32, "deflated": deflated,
-        "bordered_deflated": bordered_deflated, "complex": cplx,
-        "eigen": eigen, "driver": driver, "bridge": bridge,
-        "plan_cache": cached, "distributed": distributed}))
+        "probe_ms_per_iter_n8192": probe_big}, {
+        "name": "dia_matmat", "route": "cuda",
+        "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "hymls_tpu/ops/pallas_spmv.py:104",
+        "replaces_what": "PallasDiaMatvec under jax.vmap (the batched "
+                         "deflation setup, hymls_tpu/ops/spmv.py:170)",
+        "launches": deflated["matmat_launches"],
+        "launches_by_path": {
+            "deflated": deflated["matmat_launches"],
+            "bordered_deflated": bordered_deflated["matmat_launches"],
+            **{c: r["matmat_launches"] for c, r in defl_configs.items()}},
+        "k1_launches_in_setups": {
+            "deflated": deflated["setup_launches"],
+            "bordered_deflated": bordered_deflated["setup_launches"],
+            **{c: sum(d["k1_launches"] for d in r["deflation_setups"])
+               for c, r in defl_configs.items()}},
+        "setup_s": {
+            "deflated": [deflated["setup_s"], deflated["subspace_s"],
+                         deflated["projected_solves_s"]],
+            "bordered_deflated": [bordered_deflated["setup_s"],
+                                  bordered_deflated["subspace_s"],
+                                  bordered_deflated["projected_solves_s"]],
+            **{c: [[d["setup_s"], d["subspace_s"], d["projected_solves_s"]]
+                   for d in r["deflation_setups"]]
+               for c, r in defl_configs.items()}},
+        "setup_s_are": "[setup, subspace iteration, projected solves] s, "
+                       "wall clock",
+        "max_abs_err": matmat["max_abs_err"],
+        "err_ulp_of_sum_abs_terms": {"f64": matmat["f64_err_ulp"],
+                                     "f32": matmat["f32_err_ulp"]},
+        "ms": mm18["device_us"] * 1e-3, "plain_ms": mm18["plain_us"] * 1e-3,
+        "bound_ms": mm18["bound_us"] * 1e-3, "bound_by": mm18["bound_by"],
+        "library_ms": mm18["library_us"] * 1e-3,
+        "k1_rows_ms": mm18["k1_rows_us"] * 1e-3,
+        "library": "torch.sparse.mm on a torch.sparse_csr_tensor (cuSPARSE "
+                   "SpMM)",
+        "times_are": f"device time per launch by CUDA-graph replay of 100 "
+                     f"launches, aniso{DEFL_NX} (phase 18) B = 8 in f64; "
+                     f"per shape, B and type in sweep (us)",
+        "sweep": {k: {f: r[f] for f in (
+            "device_us", "bound_us", "roofline_share", "k1_rows_us",
+            "plain_us", "library_us")} for k, r in matmat["timed"].items()}
+        }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

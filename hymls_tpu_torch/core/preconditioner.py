@@ -729,7 +729,8 @@ def _build_bgrid_t(grid: GridInfo) -> sp.csr_matrix:
 class _BGridConjugation:
     """x -> T apply(T' x) around any apply of a preconditioner built on
     M = T' K T: T and T' as DiaOperators (three bands each), so every
-    apply costs two DIA matvecs more.  The bands are gathered once per
+    apply costs two DIA matvecs more (two multi-column DIA products for
+    a block of vectors).  The bands are gathered once per
     vector dtype (an f32 preconditioner inside an f64 Krylov method sees
     f64 vectors and promotes, as the reference does)."""
 
@@ -1162,7 +1163,11 @@ class Preconditioner:
         """x = M^{-1} b for the apply-side factor tree `factors` and the
         plan tree `aplans` (`apply_factors` and `_aplans`): the
         structured program when it is active, else the generic apply;
-        conjugated with T under the B-grid transform."""
+        conjugated with T under the B-grid transform.  `b` is a vector
+        (n,) or a block (B, n) of vectors, one per row: a block runs
+        the V-cycle once with a leading batch axis (the JAX package's
+        `jax.vmap` of the apply), and T and T' as one multi-column DIA
+        product each."""
         if self._structured_active:
             def apply(v):
                 return self._structured.apply(factors, v, aplans)
@@ -1179,6 +1184,12 @@ class Preconditioner:
         return apply(b) if self._bgrid is None else self._bgrid(apply, b)
 
     def _apply_levels(self, factors, dplans, b):
+        if b.dim() == 2:
+            # a block, one vector per row: torch.func.vmap runs each op
+            # of the V-cycle once for the block (GEMVs become GEMMs)
+            return torch.func.vmap(
+                lambda v: self._apply_levels(factors, dplans, v))(b) \
+                .contiguous()
         if self.max_level == 0:
             return _apply_direct(factors, dplans[0], b)
 
@@ -1194,7 +1205,13 @@ class Preconditioner:
         """[x; s] = [M V; W' C]^{-1} [b; T] on a pruned bordered factor
         tree and the generic plans; returns (x, s).  As in the
         reference, the bordered apply is not conjugated with the B-grid
-        transform."""
+        transform.  Blocks b (B, n) and T (B, m), one system per row,
+        run the apply once with a leading batch axis, as `apply_fn`."""
+        if b.dim() == 2:
+            x, s = torch.func.vmap(
+                lambda v, t: self.apply_bordered_fn(factors, dplans, v, t))(
+                    b, T)
+            return x.contiguous(), s.contiguous()
         if self.max_level == 0:
             return _apply_direct_bordered(factors, dplans[0], b, T)
 

@@ -982,7 +982,13 @@ class StructuredProgram:
 
     # -- apply ---------------------------------------------------------------
     def apply(self, sfactors, b, consts=None):
-        """x = M^{-1} b for the repacked factor tree `sfactors`."""
+        """x = M^{-1} b for the repacked factor tree `sfactors`; for a
+        block b (B, n), one vector per row, the program runs once with a
+        leading batch axis (torch.func.vmap, the JAX package's
+        `jax.vmap`): each einsum, roll and gather once for the block."""
+        if b.dim() == 2:
+            return torch.func.vmap(
+                lambda v: self.apply(sfactors, v, consts))(b).contiguous()
         consts = self.consts if consts is None else consts
         return self._apply_level(0, sfactors, consts, b, _REPLICATED)
 

@@ -47,6 +47,21 @@
 // band.  The plain version rounds each product first, so the two agree
 // to a few units of the last place of the largest partial sum.
 //
+// The multi-column form (hymls_dia_spmm_*, dia_spmm_kernel):
+//
+//   Y[v, i] = sum_k bands[k * ld + i] * X[v, i + off_k],   X, Y (nvec, n)
+//
+// replaces PallasDiaMatvec under jax.vmap: the JAX package's batched
+// deflation setup (hymls_tpu/solvers/deflation.py:102 and
+// hymls_tpu/solvers/solver.py:518-519) maps DiaOperator.matvec_prepared
+// over a block of vectors.  Its least traffic is (k * n + 2 * nvec * n)
+// * sizeof(T) bytes at 3.35 TB/s: the bands move once for the whole
+// block, where nvec launches of the single-vector kernel move them nvec
+// times.  A simple design: one thread per row keeps the row's band
+// values in registers and loops over the vectors, summing each exactly
+// as dia_spmv_kernel does, so that each row of Y equals a single-vector
+// launch on that row of X bit for bit.
+//
 // The offsets are passed by value in a fixed struct (48 is the band cap
 // of make_operator), so the kernel needs no device array of offsets.
 // Entry points return cudaGetLastError() of the launch (or
@@ -56,6 +71,8 @@
 // graph.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #define HYMLS_DIA_MAX_BANDS 48
 
@@ -113,6 +130,40 @@ dia_spmv_kernel(const T* __restrict__ bands, int ld,
     y[i] = acc;
 }
 
+// The multi-column form: Y[v * n + i] = sum_k bands[k * ld + i] *
+// X[v * n + i + off_k] for the nvec rows of X (each a vector).  One
+// thread per row: its band values are loaded once into registers, then
+// each vector is summed as dia_spmv_kernel sums it (band order, from 0,
+// one FMA per band, zero outside [0, n)), so that every row of Y equals
+// a dia_spmv launch on that row of X bit for bit.  Indices are 32-bit
+// (the launcher checks nvec * n < 2^31).
+template <typename T, int KB>
+__global__ void __launch_bounds__(kMaxThreads)
+dia_spmm_kernel(const T* __restrict__ bands, int ld,
+                const T* __restrict__ x, T* __restrict__ y, int n, int nvec,
+                DiaOffsets offs) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    T bv[KB];
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+        if (b < offs.k) bv[b] = __ldg(bands + (b * ld + i));
+#pragma unroll 1
+    for (int v = 0; v < nvec; ++v) {
+        const T* xv = x + v * n;
+        T acc = T(0);
+#pragma unroll
+        for (int b = 0; b < KB; ++b) {
+            if (b < offs.k) {
+                const int c = i + offs.v[b];
+                const T xb = (c >= 0 && c < n) ? __ldg(xv + c) : T(0);
+                acc = fma_t(bv[b], xb, acc);
+            }
+        }
+        y[v * n + i] = acc;
+    }
+}
+
 // SMs of the current device, queried once per device
 int sm_count() {
     static int cache[64];
@@ -124,6 +175,15 @@ int sm_count() {
             cudaSuccess)
         sms = 132;
     return sms;
+}
+
+// Threads per block: halved from 256 until the grid has two blocks per
+// SM, down to one warp.
+int block_threads(int n, int sms) {
+    int threads = kMaxThreads;
+    while (threads > kMinThreads && (n + threads - 1) / threads < 2 * sms)
+        threads /= 2;
+    return threads;
 }
 
 template <typename T, int KB, int ROUNDS>
@@ -154,13 +214,8 @@ int resident_blocks(int threads) {
 template <typename T, int KB>
 int launch_bucket(const T* bands, int ld, const T* x, T* y, int n,
                   const DiaOffsets& offs, cudaStream_t stream) {
-    // halve the block from 256 threads until the grid has two blocks per
-    // SM, down to one warp
     const int sms = sm_count();
-    int threads = kMaxThreads;
-    while (threads > kMinThreads &&
-           (n + threads - 1) / threads < 2 * sms)
-        threads /= 2;
+    const int threads = block_threads(n, sms);
     const int blocks = (n + threads - 1) / threads;
     // all loads in one round, except in f64 where the grid does not fit
     // on the card at once: there two rounds halve the registers and let
@@ -175,38 +230,79 @@ int launch_bucket(const T* bands, int ld, const T* x, T* y, int n,
                                    stream);
 }
 
-template <typename T>
-int launch(const void* bands_, long long ld, const void* x_, void* y_,
-           long long n, const void* offsets, int k, void* stream_) {
-    // 32-bit indices: n < 2^30 keeps i + off (|off| clamped to n) and
-    // k * ld < 2^31 every band element in range
-    if (k < 1 || k > HYMLS_DIA_MAX_BANDS || n < 0 || ld < n ||
-        n >= (1LL << 30) || (long long)k * ld >= (1LL << 31))
-        return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaSuccess;
+template <typename T, int KB>
+int launch_spmm_bucket(const T* bands, int ld, const T* x, T* y, int n,
+                       int nvec, const DiaOffsets& offs, cudaStream_t stream) {
+    const int threads = block_threads(n, sm_count());
+    dia_spmm_kernel<T, KB><<<(n + threads - 1) / threads, threads, 0,
+                             stream>>>(bands, ld, x, y, n, nvec, offs);
+    return (int)cudaGetLastError();
+}
+
+// Calls f(std::integral_constant<int, KB>) for the band bucket KB of k.
+template <typename F>
+int by_bucket(int k, F&& f) {
+    using std::integral_constant;
+    if (k <= 4) return f(integral_constant<int, 4>{});
+    if (k <= 8) return f(integral_constant<int, 8>{});
+    if (k <= 12) return f(integral_constant<int, 12>{});
+    if (k <= 16) return f(integral_constant<int, 16>{});
+    if (k <= 20) return f(integral_constant<int, 20>{});
+    if (k <= 24) return f(integral_constant<int, 24>{});
+    if (k <= 32) return f(integral_constant<int, 32>{});
+    if (k <= 40) return f(integral_constant<int, 40>{});
+    return f(integral_constant<int, 48>{});
+}
+
+// The offsets as the kernels take them.  A band wholly outside [0, n)
+// reads only zeros; clamping keeps i + off inside 32 bits.
+DiaOffsets pack_offsets(const void* offsets, int k, long long n) {
     DiaOffsets offs;
     const int* off = static_cast<const int*>(offsets);
-    for (int j = 0; j < k; ++j) {
-        // a band wholly outside [0, n) reads only zeros; clamping keeps
-        // i + off inside 32 bits
+    for (int j = 0; j < k; ++j)
         offs.v[j] = off[j] < -n ? (int)-n : off[j] > n ? (int)n : off[j];
-    }
     for (int j = k; j < HYMLS_DIA_MAX_BANDS; ++j) offs.v[j] = 0;
     offs.k = k;
-    const T* bands = static_cast<const T*>(bands_);
-    const T* x = static_cast<const T*>(x_);
-    T* y = static_cast<T*>(y_);
-    const int m = (int)n, l = (int)ld;
-    cudaStream_t s = static_cast<cudaStream_t>(stream_);
-    if (k <= 4) return launch_bucket<T, 4>(bands, l, x, y, m, offs, s);
-    if (k <= 8) return launch_bucket<T, 8>(bands, l, x, y, m, offs, s);
-    if (k <= 12) return launch_bucket<T, 12>(bands, l, x, y, m, offs, s);
-    if (k <= 16) return launch_bucket<T, 16>(bands, l, x, y, m, offs, s);
-    if (k <= 20) return launch_bucket<T, 20>(bands, l, x, y, m, offs, s);
-    if (k <= 24) return launch_bucket<T, 24>(bands, l, x, y, m, offs, s);
-    if (k <= 32) return launch_bucket<T, 32>(bands, l, x, y, m, offs, s);
-    if (k <= 40) return launch_bucket<T, 40>(bands, l, x, y, m, offs, s);
-    return launch_bucket<T, 48>(bands, l, x, y, m, offs, s);
+    return offs;
+}
+
+// 32-bit indices: n < 2^30 keeps i + off (|off| clamped to n) and
+// k * ld < 2^31 every band element in range
+bool args_ok(int k, long long ld, long long n) {
+    return k >= 1 && k <= HYMLS_DIA_MAX_BANDS && n >= 0 && ld >= n &&
+           n < (1LL << 30) && (long long)k * ld < (1LL << 31);
+}
+
+template <typename T>
+int launch(const void* bands, long long ld, const void* x, void* y,
+           long long n, const void* offsets, int k, void* stream) {
+    if (!args_ok(k, ld, n)) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaSuccess;
+    const DiaOffsets offs = pack_offsets(offsets, k, n);
+    return by_bucket(k, [&](auto kb) {
+        return launch_bucket<T, decltype(kb)::value>(
+            static_cast<const T*>(bands), (int)ld, static_cast<const T*>(x),
+            static_cast<T*>(y), (int)n, offs,
+            static_cast<cudaStream_t>(stream));
+    });
+}
+
+// x and y are (nvec, n) row-major; nvec * n < 2^31 keeps every vector
+// element's index inside 32 bits
+template <typename T>
+int launch_spmm(const void* bands, long long ld, const void* x, void* y,
+                long long n, long long nvec, const void* offsets, int k,
+                void* stream) {
+    if (!args_ok(k, ld, n) || nvec < 0 || nvec * n >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    if (n == 0 || nvec == 0) return (int)cudaSuccess;
+    const DiaOffsets offs = pack_offsets(offsets, k, n);
+    return by_bucket(k, [&](auto kb) {
+        return launch_spmm_bucket<T, decltype(kb)::value>(
+            static_cast<const T*>(bands), (int)ld, static_cast<const T*>(x),
+            static_cast<T*>(y), (int)n, (int)nvec, offs,
+            static_cast<cudaStream_t>(stream));
+    });
 }
 
 }  // namespace
@@ -223,6 +319,18 @@ int hymls_dia_spmv_f64(const void* bands, long long ld, const void* x,
                        void* y, long long n, const void* offsets, int k,
                        void* stream) {
     return launch<double>(bands, ld, x, y, n, offsets, k, stream);
+}
+
+int hymls_dia_spmm_f32(const void* bands, long long ld, const void* x,
+                       void* y, long long n, long long nvec,
+                       const void* offsets, int k, void* stream) {
+    return launch_spmm<float>(bands, ld, x, y, n, nvec, offsets, k, stream);
+}
+
+int hymls_dia_spmm_f64(const void* bands, long long ld, const void* x,
+                       void* y, long long n, long long nvec,
+                       const void* offsets, int k, void* stream) {
+    return launch_spmm<double>(bands, ld, x, y, n, nvec, offsets, k, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,17 @@ against on the card.
 An operator whose offsets are fixed packs them once (`DiaOffsets`) and
 calls `dia_matvec_packed`, which checks per call only what can change:
 device, dtype, shape and layout of the tensors.
+
+`dia_matmat(bands, X, offsets)` is the multi-column form for a block X
+of shape (B, n), one vector per row:
+
+    Y[c, i] = sum_k bands[k, i] * X[c, i + offsets[k]]
+
+On a CUDA tensor it is one launch of the kernel's multi-column entry
+point (the bands read once for the block), which replaces
+`PallasDiaMatvec` under `jax.vmap` in the JAX package's batched
+deflation setup; each row of Y equals `dia_matvec` of that row of X bit
+for bit.  On a CPU tensor it runs `dia_matmat_reference`.
 """
 from __future__ import annotations
 
@@ -85,6 +96,37 @@ def dia_matvec_reference(bands: torch.Tensor, x: torch.Tensor,
     return y
 
 
+def _check_block(bands: torch.Tensor, X: torch.Tensor, k: int) -> None:
+    if X.dim() != 2 or bands.dim() != 2:
+        raise ValueError("dia_matmat wants bands (k, n) and X (B, n)")
+    if bands.shape[0] != k or bands.shape[1] != X.shape[1]:
+        raise ValueError(f"bands shape {tuple(bands.shape)} != "
+                         f"({k}, {X.shape[1]})")
+    if bands.dtype != X.dtype or X.dtype not in _DTYPES:
+        raise TypeError(f"dia_matmat wants matching float32/float64 "
+                        f"tensors, got {bands.dtype} and {X.dtype}")
+    if bands.device != X.device:
+        raise ValueError(f"bands on {bands.device}, X on {X.device}")
+    if not (bands.is_contiguous() and X.is_contiguous()):
+        raise ValueError("dia_matmat wants contiguous bands and X")
+
+
+def dia_matmat_reference(bands: torch.Tensor, X: torch.Tensor,
+                         offsets: Sequence[int]) -> torch.Tensor:
+    """Plain torch multi-column DIA product: `dia_matvec_reference`'s
+    padded shifted slices, broadcast over the leading axis of X (B, n),
+    so that each row equals `dia_matvec_reference` of that row bit for
+    bit."""
+    offsets = tuple(int(o) for o in offsets)
+    n = X.shape[-1]
+    pad = max(max((abs(o) for o in offsets), default=1), 1)
+    x_pad = torch.nn.functional.pad(X, (pad, pad))
+    y = torch.zeros_like(X)
+    for k, off in enumerate(offsets):
+        y = y + bands[k, :n] * x_pad[..., pad + off:pad + off + n]
+    return y
+
+
 @functools.cache
 def _entry(dtype: torch.dtype):
     """The kernel's C entry point for `dtype`, from the library built at
@@ -98,6 +140,30 @@ def _entry(dtype: torch.dtype):
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _entry_mm(dtype: torch.dtype):
+    """The multi-column entry point for `dtype`, as `_entry`."""
+    lib = _build.load("dia_spmv")
+    fn = lib.hymls_dia_spmm_f32 if dtype == torch.float32 \
+        else lib.hymls_dia_spmm_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(fn, dev: torch.device, args) -> int:
+    """fn(*args, stream) on `dev`'s current stream.  The raw handle of
+    the stream: 0.1 us against ~3 us for
+    torch.cuda.current_stream(dev).cuda_stream, which builds a Stream."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def dia_matvec_packed(bands: torch.Tensor, x: torch.Tensor,
@@ -118,16 +184,8 @@ def dia_matvec_packed(bands: torch.Tensor, x: torch.Tensor,
     y = torch.empty_like(x)
     if n == 0:
         return y
-    # the raw handle of the current stream: 0.1 us against ~3 us for
-    # torch.cuda.current_stream(dev).cuda_stream, which builds a Stream
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    args = (bands.data_ptr(), n, x.data_ptr(), y.data_ptr(), n, offs.ptr,
-            offs.k, stream)
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
+    err = _launch(fn, dev, (bands.data_ptr(), n, x.data_ptr(),
+                            y.data_ptr(), n, offs.ptr, offs.k))
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error "
                            f"{err} (n={n}, k={offs.k}, dtype={x.dtype})")
@@ -142,5 +200,44 @@ def dia_matvec(bands: torch.Tensor, x: torch.Tensor,
     return dia_matvec_packed(bands, x, DiaOffsets(offsets))
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+def dia_matmat_packed(bands: torch.Tensor, X: torch.Tensor,
+                      offs: DiaOffsets) -> torch.Tensor:
+    """Y = DIA(bands, offs) @ each row of X (B, n), in one launch of the
+    multi-column kernel on CUDA tensors (or raise); CPU tensors take
+    `dia_matmat_reference`."""
+    _check_block(bands, X, offs.k)
+    dev = X.device
+    if dev.type == "cpu":
+        return dia_matmat_reference(bands, X, offs.offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"dia_matmat: unsupported device {dev}")
+    nvec, n = X.shape
+    if n >= _MAX_ROWS or offs.k * n >= _MAX_ELEMENTS or \
+            nvec * n >= _MAX_ELEMENTS:
+        raise ValueError(f"dia_matmat kernel: {nvec} vectors of n = {n} "
+                         f"with {offs.k} bands is beyond its 32-bit "
+                         f"indices")
+    fn = _entry_mm(X.dtype)
+    Y = torch.empty_like(X)
+    if n == 0 or nvec == 0:
+        return Y
+    err = _launch(fn, dev, (bands.data_ptr(), n, X.data_ptr(),
+                            Y.data_ptr(), n, nvec, offs.ptr, offs.k))
+    if err != 0:
+        raise RuntimeError(f"dia_spmm kernel launch failed: CUDA error "
+                           f"{err} (B={nvec}, n={n}, k={offs.k}, "
+                           f"dtype={X.dtype})")
+    dia_matmat.launches += 1
+    return Y
+
+
+def dia_matmat(bands: torch.Tensor, X: torch.Tensor,
+               offsets: Sequence[int]) -> torch.Tensor:
+    """`dia_matmat_packed` for offsets given as a sequence, packed on
+    this call."""
+    return dia_matmat_packed(bands, X, DiaOffsets(offsets))
+
+
+#: kernel launches since the last reset (chip_smoke.py reads them)
 dia_matvec.launches = 0
+dia_matmat.launches = 0

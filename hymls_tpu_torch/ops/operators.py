@@ -10,8 +10,10 @@ reference's small operator adapters:
   * ProjectedOperator (src/HYMLS_ProjectedOperator.{hpp,cpp}):
     (I - V W') A (I - V W').
 
-These are plain closures over callables that take and return tensors;
-V and W are tensors of the vectors' dtype and device.
+These are plain closures over callables that take and return tensors
+(a vector, or a block of vectors one per row where the composed
+callables take one); V and W are tensors of the vectors' dtype and
+device.
 """
 from __future__ import annotations
 
@@ -43,10 +45,14 @@ def product_operator(*ops: Callable) -> Callable:
 def projected_operator(op: Callable, V: torch.Tensor,
                        W: Optional[torch.Tensor] = None) -> Callable:
     """x -> (I - V W') A (I - V W') x (W=None means W:=V; V orthonormal
-    columns assumed, as in the reference's deflation use)."""
+    columns assumed, as in the reference's deflation use).  x is a
+    vector (n,) or a block (B, n) of vectors, one per row, which the
+    projector maps to X - (X W) V'."""
     Wm = V if W is None else W
 
     def proj(x):
+        if x.dim() == 2:
+            return x - (x @ Wm) @ V.T
         return x - V @ (Wm.T @ x)
 
     def apply(x):

@@ -8,6 +8,10 @@ value array, so Newton-step value updates need no re-indexing:
     matrix): bands (k, n) times shifted copies of x — on CUDA one
     launch of the hand-written kernel (ops/dia_spmv.py);
   * ELL otherwise: a (n, width) gather + multiply + row sum.
+
+Both take a vector (n,) or a block (B, n) of B vectors, one per row
+(the JAX package's `jax.vmap` of `matvec_prepared`): a DIA block is one
+launch of the multi-column kernel, an ELL block one batched gather.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import scipy.sparse as sp
 
 import torch
 
-from .dia_spmv import DiaOffsets, dia_matvec_packed
+from .dia_spmv import DiaOffsets, dia_matmat_packed, dia_matvec_packed
 
 
 def _canonical(A: sp.spmatrix) -> sp.csr_matrix:
@@ -59,6 +63,9 @@ class EllOperator:
         return vals_ext[self.vidx]
 
     def matvec_prepared(self, pvals, x):
+        if x.dim() == 2:
+            x_ext = torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)
+            return torch.sum(pvals * x_ext[:, self.cols], dim=2)
         x_ext = torch.cat([x, x.new_zeros(1)])
         return torch.sum(pvals * x_ext[self.cols], dim=1)
 
@@ -77,7 +84,8 @@ class DiaOperator(torch.nn.Module):
     the zero sentinel) and the values `vals`; `prepare(vals)` gathers
     the (k, n) contiguous bands once per value set, and
     `matvec_prepared(bands, x)` is one `dia_matvec_packed` call on the
-    offsets packed at construction (`packed`)."""
+    offsets packed at construction (`packed`), or for a block x (B, n)
+    one `dia_matmat_packed` call."""
 
     def __init__(self, A: sp.csr_matrix, dtype=torch.float64, *, device):
         super().__init__()
@@ -112,6 +120,8 @@ class DiaOperator(torch.nn.Module):
         return vals_ext[self.vidx]                   # (k, n) contiguous
 
     def matvec_prepared(self, bands, x):
+        if x.dim() == 2:
+            return dia_matmat_packed(bands, x, self.packed)
         return dia_matvec_packed(bands, x, self.packed)
 
     def matvec_with(self, vals, x):

@@ -15,7 +15,8 @@ plus a small dense correction system for the V-components
 
 The deflation space and the correction system live on the host as
 numpy arrays, as in the JAX package; only the block applies of the
-subspace iteration and the projected solves run on tensors.
+subspace iteration and the projected solves run on tensors, each on a
+whole block at once (the JAX package's two `jax.vmap` programs).
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ def compute_deflation_space(apply_prec: Callable, n: int, num_eigs: int,
     return Q[:, :num_eigs]
 
 
-def compute_deflation_space_device(apply_col: Callable, n: int,
+def compute_deflation_space_device(apply_block: Callable, n: int,
                                    num_eigs: int, dtype, *, device,
                                    iters: int = 60, oversample: int = 6,
                                    seed: int = 12345,
@@ -95,35 +96,35 @@ def compute_deflation_space_device(apply_col: Callable, n: int,
     recomputed from V), so rtol only controls how well V spans the slow
     modes.
 
-    `apply_col` maps an (n,) tensor to an (n,) tensor (the
-    preconditioner apply, optionally composed with the mass operator);
-    a block apply is a Python loop over the block's columns, and each
+    `apply_block` maps a (kp, n) block of kp vectors, one per row, to
+    the (kp, n) block of their images (the preconditioner apply,
+    optionally composed with the mass operator, batched as the JAX
+    package's `jax.vmap(apply_col)`): one call per iteration, and each
     iteration reads its residual on the host once.  The start block is
     drawn and orthonormalized on the host, so that it is the JAX
-    package's.  `_info`, when a dict, receives {'applies', 'rel'}."""
+    package's.  `_info`, when a dict, receives {'applies', 'rel'}, with
+    the applies counted in columns."""
     kp = int(min(num_eigs + oversample, max(n - 2, 1)))
     if rtol is None:
         rtol = 1e-5 if dtype == torch.float64 else 1e-4
     rng = np.random.default_rng(seed)
     Q0 = np.linalg.qr(rng.standard_normal((n, kp)))[0]
 
-    def apply_block(Q):
-        # columns as contiguous rows, so that each apply sees a
-        # contiguous vector
-        Qt = Q.T.contiguous()
-        return torch.stack([apply_col(Qt[j]) for j in range(kp)], dim=1)
+    def apply_cols(Q):
+        # the columns of Q as the contiguous rows of a block
+        return apply_block(Q.T.contiguous()).T
 
     Q = torch.as_tensor(Q0, dtype=dtype, device=device)
     it, rel = 0, float("inf")
     while it < iters and rel > rtol:
-        Z = apply_block(Q)
+        Z = apply_cols(Q)
         H = Q.T @ Z                      # Rayleigh-Ritz (nonsymmetric)
         Rres = Z[:, :num_eigs] - Q @ H[:, :num_eigs]
         rel = float(torch.linalg.norm(Rres) / torch.clamp(
             torch.linalg.norm(H[:, :num_eigs]), min=1e-30))
         Q, _r = torch.linalg.qr(Z)
         it += 1
-    Z = apply_block(Q)
+    Z = apply_cols(Q)
     H = Q.T @ Z
     if _info is not None:
         # +1: the final Ritz extraction costs one more block apply

@@ -17,6 +17,9 @@ the right-hand side with scale_with_rhs=True.
 The loops are Python `while` loops: each iteration reads its residual
 on the host once (one device synchronisation per iteration on CUDA).
 
+`gmres_batched` runs nb systems at once, one per row of a block, with
+the semantics of the JAX package's `jax.vmap(krylov.gmres)`.
+
 `allreduce` (a function that sums a tensor over the ranks of a mesh,
 parallel/dist.py's `DistributedSolve.allreduce`) runs a loop on
 owner-sharded vectors: every dot, norm and Gram-Schmidt projection is
@@ -185,6 +188,115 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     else:
         x = x0.clone()
     return KrylovResult(x=x, iters=k, relres=res, converged=done)
+
+
+def gmres_batched(op: Callable, B: torch.Tensor, X0: torch.Tensor,
+                  prec: Optional[Callable] = None, *, tol: float = 1e-8,
+                  maxiter: int = 100, left: bool = False) -> KrylovResult:
+    """`gmres` on nb real systems at once, one per row of B (nb, n) and
+    X0 (nb, n): the semantics of the JAX package's
+    `jax.vmap(krylov.gmres)`.  op and prec map an (nb, n) block to an
+    (nb, n) block.
+
+    Every system has its own Krylov basis (V is (m+1, nb, n), so that
+    the block of the k-th basis vectors is one contiguous (nb, n)
+    tensor), its own Givens product, residual, scale and convergence
+    test; CGS2 runs as batched products.  The loop runs while any
+    system is active, op and prec always on the whole block, and a
+    system that has converged keeps its state frozen, as the vmapped
+    `lax.while_loop` keeps it through `select`.  One host read per
+    iteration: whether any system is still active.
+
+    Returns a KrylovResult of tensors: x (nb, n), iters (nb,),
+    relres (nb,) and converged (nb,)."""
+    nb, n = B.shape
+    dtype, dev = B.dtype, B.device
+    m = maxiter
+    tol = _as_dtype(tol, dtype)
+    if prec is None:
+        prec = lambda x: x   # noqa: E731
+        left = False
+
+    def matop(v):
+        return prec(op(v)) if left else op(prec(v))
+
+    r0 = B - op(X0)
+    if left:
+        r0 = prec(r0)
+    beta = torch.linalg.norm(r0, dim=1)
+    scale = torch.where(beta > 0, beta, torch.ones_like(beta))
+
+    V = torch.zeros((m + 1, nb, n), dtype=dtype, device=dev)
+    V[0] = torch.where(beta[:, None] > 0, r0 / beta[:, None], r0)
+    R = torch.zeros((nb, m + 1, m), dtype=dtype, device=dev)
+    g = torch.zeros((nb, m + 1), dtype=dtype, device=dev)
+    g[:, 0] = beta
+    Q = torch.eye(m + 1, dtype=dtype, device=dev).repeat(nb, 1, 1)
+    one = torch.ones((), dtype=dtype, device=dev)
+
+    res = beta / scale
+    active = ~(res <= tol)
+    iters = torch.zeros(nb, dtype=torch.int64, device=dev)
+    k = 0
+    while k < m and bool(active.any()):
+        w = matop(V[k])
+        # CGS2 of each system against its basis vectors 0..k
+        Vk = V[:k + 1].transpose(0, 1)                  # (nb, k+1, n)
+        h1 = torch.bmm(Vk, w[:, :, None])[:, :, 0]
+        w = w - torch.bmm(h1[:, None, :], Vk)[:, 0]
+        h2 = torch.bmm(Vk, w[:, :, None])[:, :, 0]
+        w = w - torch.bmm(h2[:, None, :], Vk)[:, 0]
+        hk1 = torch.linalg.norm(w, dim=1)
+        act = active[:, None]
+        V[k + 1] = torch.where(
+            act, torch.where(hk1[:, None] > 0, w / hk1[:, None], w),
+            V[k + 1])
+
+        col = torch.zeros((nb, m + 1), dtype=dtype, device=dev)
+        col[:, :k + 1] = h1 + h2
+        col[:, k + 1] = hk1
+        col = torch.bmm(Q, col[:, :, None])[:, :, 0]
+
+        # the new rotation zeroing col[k+1], per system
+        a, bb = col[:, k], col[:, k + 1]
+        denom = torch.sqrt(a * a + bb * bb)
+        absa = torch.abs(a)
+        ck = torch.where(denom > 0, absa / denom, one)
+        sgn = torch.where(absa > 0, a / torch.where(absa > 0, absa, one),
+                          one)
+        sk = torch.where(denom > 0, sgn * bb / denom, torch.zeros_like(a))
+        col[:, k] = denom * sgn
+        col[:, k + 1] = 0.0
+        # fold G_k into Q and g; frozen systems keep theirs
+        qk, qk1 = Q[:, k].clone(), Q[:, k + 1].clone()
+        Q[:, k] = torch.where(act, ck[:, None] * qk + sk[:, None] * qk1, qk)
+        Q[:, k + 1] = torch.where(act, -sk[:, None] * qk + ck[:, None] * qk1,
+                                  qk1)
+        gk = g[:, k].clone()
+        gk1 = -sk * gk
+        g[:, k] = torch.where(active, ck * gk, gk)
+        g[:, k + 1] = torch.where(active, gk1, g[:, k + 1])
+        R[:, :, k] = torch.where(act, col, R[:, :, k])
+        res = torch.where(active, torch.abs(gk1) / scale, res)
+        iters = iters + active
+        active = active & ~(res <= tol)
+        k += 1
+
+    if k:
+        # R[:k, :k] y = g[:k] per system, the rows past its own count
+        # masked to identity (its y is zero there), as the reference
+        j = torch.arange(k, device=dev)
+        live = j[None, :] < iters[:, None]
+        Rm = R[:, :k, :k] + torch.diag_embed((~live).to(dtype))
+        gm = torch.where(live, g[:, :k], torch.zeros_like(g[:, :k]))
+        y = torch.linalg.solve_triangular(Rm, gm[:, :, None],
+                                          upper=True)[:, :, 0]
+        dx = torch.bmm(y[:, None, :], V[:k].transpose(0, 1))[:, 0]
+        X = X0 + (dx if left else prec(dx))
+    else:
+        X = X0.clone()
+    return KrylovResult(x=X, iters=iters, relres=res,
+                        converged=res <= tol)
 
 
 def _gmres_restarted(op, b, x0, prec, *, tol, maxiter, left,

@@ -373,50 +373,54 @@ class Solver:
                 return np.concatenate([Knp.T @ zx + W_b @ zs,
                                        V_b.T @ zx + C_b.T @ zs])
 
-        # one column of the subspace iteration: the preconditioner
-        # apply, with the mass operator in front of it
+        # the subspace iteration's block apply: the preconditioner on a
+        # block of vectors, one per row, with the mass operator in front
         Mop = None
         if self._mass is not None:
             Mop = make_operator(self._mass.tocsr(), dtype=self.dtype,
                                 device=self.device)
         if not aug:
-            def vcycle(z):
-                return apply_fn(factors, dplans, z)
-            apply_col = vcycle if Mop is None else \
+            def vcycle(Z):
+                return apply_fn(factors, dplans, Z)
+            apply_block = vcycle if Mop is None else \
                 product_operator(vcycle, Mop)
         else:
-            def apply_col(z):
-                zx, zs = z[:n], z[n:]
+            def apply_block(Z):
+                zx, zs = Z[:, :n].contiguous(), Z[:, n:]
                 if Mop is not None:
                     zx = Mop(zx)
                 return torch.cat(self.precond.apply_bordered_fn(
-                    factors, dplans, zx, zs))
+                    factors, dplans, zx, zs), dim=1)
 
         self._defl_info = {}
         if V is None:
             V = _defl.compute_deflation_space_device(
-                apply_col, n + m, k, self.dtype, device=self.device,
+                apply_block, n + m, k, self.dtype, device=self.device,
                 _info=self._defl_info)
         Vt = torch.as_tensor(V, dtype=self.dtype, device=self.device)
         solve, solve_setup = self._build_proj_solve(aug)
 
-        def run(fn, r):
-            res = fn(factors, dplans, Vt, torch.as_tensor(
-                r, dtype=self.dtype, device=self.device))
+        def as_t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
+                                   device=self.device)
+
+        def proj_solve(r):
+            res = solve(factors, dplans, Vt, as_t(r))
             self._last_res = res
             return res.x.cpu().numpy()
 
-        def proj_solve(r):
-            return run(solve, r)
-
         def multi_solve(Rhs):
-            """The k projected setup columns, one solve each; the
-            result kept is the last column's.  Replicated also under
-            'Distributed Apply', as in the reference: the setup runs
-            once, the projected solves per right-hand side are the hot
-            path."""
-            return np.column_stack([run(solve_setup, Rhs[:, j])
-                                    for j in range(Rhs.shape[1])])
+            """The k projected setup columns in one batched GMRES (the
+            JAX package's `jax.vmap` of the solve); the result kept is
+            the last column's.  Replicated also under 'Distributed
+            Apply', as in the reference: the setup runs once, the
+            projected solves per right-hand side are the hot path."""
+            res = solve_setup(factors, dplans, Vt, as_t(Rhs.T))
+            self._last_res = krylov.KrylovResult(
+                x=res.x[-1], iters=int(res.iters[-1]),
+                relres=float(res.relres[-1]),
+                converged=bool(res.converged[-1]))
+            return res.x.T.cpu().numpy()
 
         self._deflation = _defl.setup_deflation(V, mv, mvT, proj_solve,
                                                 multi_solve=multi_solve)
@@ -428,17 +432,20 @@ class Solver:
         """(solve, solve_setup), each solve(factors, dplans, V, b):
         GMRES from a zero start vector on the projected system
         (I - VV') A (I - VV'), preconditioned by the projected V-cycle;
-        with `aug` on the bordered system.  Under 'Distributed Apply'
-        (not bordered) `solve` runs owner-sharded and `solve_setup`
-        replicated."""
+        with `aug` on the bordered system.  A block b (B, n) of
+        right-hand sides, one per row, is one batched GMRES
+        (`krylov.gmres_batched`) whose operator and V-cycle take the
+        whole block.  Under 'Distributed Apply' (not bordered) `solve`
+        runs owner-sharded and `solve_setup` replicated."""
         tol, maxiter = self.tol, self.maxiter
         left = self.lor == "Left"
         n = self.op.n
         dist = self._make_dist() if self.distributed and not aug else None
 
         def run(op, prec, b, **kw):
-            return krylov.gmres(op, b, torch.zeros_like(b), prec, tol=tol,
-                                maxiter=maxiter, left=left, **kw)
+            gm = krylov.gmres_batched if b.dim() == 2 else krylov.gmres
+            return gm(op, b, torch.zeros_like(b), prec, tol=tol,
+                      maxiter=maxiter, left=left, **kw)
 
         if not aug:
             apply_fn = self.precond.apply_fn
@@ -485,13 +492,19 @@ class Solver:
             pvals = self.op.prepare(self.op.vals)
 
             def op(z):
+                if z.dim() == 2:
+                    x, sb = z[:, :n].contiguous(), z[:, n:]
+                    return torch.cat([
+                        self.op.matvec_prepared(pvals, x) + sb @ Vb.T,
+                        x @ Wb + sb @ Cb.T], dim=1)
                 x, sb = z[:n], z[n:]
                 return torch.cat([
                     self.op.matvec_prepared(pvals, x) + Vb @ sb,
                     Wb.T @ x + Cb @ sb])
 
             def prec(z):
-                return torch.cat(bord_fn(factors, dplans, z[:n], z[n:]))
+                return torch.cat(bord_fn(factors, dplans, z[..., :n],
+                                         z[..., n:]), dim=-1)
 
             return run(projected_operator(op, V),
                        projected_operator(prec, V), b)
