@@ -9,8 +9,10 @@ raises on failure (nonzero exit, no result line):
   1. device: CUDA must be present; prints the card's name and power
      limit as nvidia-smi reports them;
   2. build: compiles every kernel of hymls_tpu_torch/csrc (dia_spmv.cu
-     with K1 and its multi-column form, dense_matvec.cu) with nvcc, one process per source, all started
-     together (and, with --baseline DIR, DIR's dia_spmv.cu beside them);
+     with K1 and its multi-column form, dense_matvec.cu) with nvcc, one
+     process per source, all started together (and, with --baseline
+     DIR, DIR's dia_spmv.cu beside them), and prints ptxas's registers
+     and spills per kernel instance;
   3. kernels: each kernel against its plain torch version on the card.
      The DIA SpMV at six shapes from the port's generators -- cavity64
      (the main path's, 19 bands x 12288), stokes128, cavity128,
@@ -33,11 +35,16 @@ raises on failure (nonzero exit, no result line):
      aligned and an unaligned x, at the same tolerances.  K1's
      multi-column form (dia_matmat, the deflation setups' batched DIA
      products) on all those operators at every block size of
-     MATMAT_BLOCKS, in f64 and f32 (per element within 4 ulp of
-     sum_k |bands x|), each row equal to K1's on that row bit for bit;
-     at phases 18's and 19's operators and block sizes its device time
-     by CUDA-graph replay beside its bound, B launches of K1, the plain
-     version and cuSPARSE's SpMM (torch.sparse.mm).  The dense
+     MATMAT_COVER_BLOCKS and MATMAT_BLOCKS and on random operators of
+     4 to 48 bands, in f64 and f32 (per element within 4 ulp of
+     sum_k |bands x|), each row equal to K1's on that row bit for bit,
+     every kernel instance its launcher can pick run at least once; at
+     phases 18's and 19's operators and block sizes, a 5-band shape
+     beyond L2 (aniso1024) and the 19-band 3-D Stokes operator at 16^3,
+     its device time by CUDA-graph replay beside its bound, an empty
+     launch, B launches of K1, the plain version, cuSPARSE's SpMM
+     (torch.sparse.mm) and, with --baseline, DIR's multi-column entry,
+     and the us each added vector costs.  The dense
      matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
@@ -645,7 +652,8 @@ def check_dia_kernel(device, baseline=None):
             yardsticks = {"library": (library, 10 * TOL[dtype])}
             if baseline is not None:
                 yardsticks["baseline"] = (
-                    caller(baseline[dtype], bands, x, offs), TOL[dtype])
+                    caller(baseline["spmv"][dtype], bands, x, offs),
+                    TOL[dtype])
             diff = {}
             for what, (fn, tol) in yardsticks.items():
                 diff[what] = float((fn() - y).abs().max()) / max(
@@ -711,6 +719,14 @@ def check_dia_kernel(device, baseline=None):
 #: subspace iteration's kp = k + 6 where a mass matrix or the B-grid
 #: transform puts a DIA product into the block apply
 MATMAT_BLOCKS = (5, 6, 8, 10, 11, 12, 14, 16)
+#: block sizes below those, so that the correctness loop reaches the
+#: kernel's smaller vector groups (VB = 1, 2 and 4) in every bucket
+MATMAT_COVER_BLOCKS = (1, 2, 3)
+#: one operator of random bands for each band bucket of the kernel (4 to
+#: 48 bands), at a ragged n, so that every instance the launcher can pick
+#: is run: k bands at distinct random offsets within and beyond n
+SYNTH_BUCKETS = (4, 8, 12, 16, 20, 24, 32, 40, 48)
+SYNTH_N = 3001
 #: dia_matmat against its plain version, per element, in units of the
 #: largest partial sum (sum_k |bands * x| bounds every partial sum): 4
 #: ulp of the type.  The plain version rounds every product, the kernel
@@ -732,7 +748,7 @@ def hold_dia_matmat(bands, X, offs, what):
     torch.cuda.synchronize()
     diff = (Y - Y_ref).abs()
     scale = dia_matmat_reference(bands.abs(), X.abs(), offs.offsets)
-    err = float((diff / scale.clamp_min(1e-300)).max())
+    err = float((diff / scale.clamp_min(torch.finfo(X.dtype).tiny)).max())
     if not (err <= MATMAT_TOL[X.dtype]) or not bool(torch.isfinite(Y).all()):
         raise RuntimeError(f"dia_matmat {what} disagrees with its plain "
                            f"version: {err:.3e}")
@@ -743,50 +759,103 @@ def hold_dia_matmat(bands, X, offs, what):
     return float(diff.max()), err
 
 
-def check_dia_matmat(device):
+def matmat_instance(n, nvec, k, dtype):
+    """(type, band bucket, VB, rounds): the kernel instance the
+    multi-column launcher runs for this shape."""
+    from hymls_tpu_torch.ops.dia_spmv import matmat_plan
+    p = matmat_plan(n, nvec, k, dtype)
+    return (str(dtype)[6:], p["bucket"], p["vb"], p["rounds"])
+
+
+def synthetic_operators(rng):
+    """{name: (f64 bands, DiaOffsets)}: SYNTH_BUCKETS' operators of
+    random bands at n = SYNTH_N."""
+    from hymls_tpu_torch.ops.dia_spmv import DiaOffsets
+    n = SYNTH_N
+    out = {}
+    for k in SYNTH_BUCKETS:
+        offs = rng.choice(np.arange(-n - 2, n + 3), size=k, replace=False)
+        out[f"random {k} bands"] = (rng.standard_normal((k, n)),
+                                    DiaOffsets(offs.tolist()))
+    return out
+
+
+def check_dia_matmat(device, baseline=None):
     """Phase 3: K1's multi-column form against its plain version on every
     DIA operator of phases 18, 19, 21, 22 and 27 (as make_operator
     builds them, with their transposes) at every block size of
-    MATMAT_BLOCKS, in f64 and f32, each row also against K1 bit for bit;
-    then, at phase 18's and 19's operators and block sizes, the device
-    time per launch by CUDA-graph replay beside its bound, B launches of
-    K1 on the rows, the plain version and cuSPARSE's SpMM
-    (torch.sparse.mm on the CSR tensor, timed here only)."""
+    MATMAT_COVER_BLOCKS and MATMAT_BLOCKS, and on SYNTH_BUCKETS' random
+    operators, in f64 and f32, each row also against K1 bit for bit;
+    every kernel instance the launcher can pick (band count 1-48, B
+    1-64, both types) must have run.  Then, at MATMAT_SWEEP's shapes and
+    block sizes, the device time per launch by CUDA-graph replay beside
+    its bound, an empty launch, B launches of K1 on the rows, the plain
+    version, cuSPARSE's SpMM (torch.sparse.mm on the CSR tensor, timed
+    here only) and, given `baseline`, the earlier tree's multi-column
+    entry (which must give the same bits); and the device us each added
+    vector costs between a shape's two block sizes."""
     from hymls_tpu_torch.ops.dia_spmv import (dia_matmat_packed,
                                               dia_matmat_reference,
-                                              dia_matvec_packed)
+                                              dia_matvec_packed,
+                                              matmat_plan)
     from hymls_tpu_torch.ops.spmv import make_operator
     from hymls_tpu_torch.tools.dia_spmv_sweep import (
-        HBM_BYTES_PER_S, PEAK_FLOPS, capture, replay_us)
+        MATMAT_SWEEP, bound_mm, caller_mm, capture, matmat_matrix,
+        replay_us)
 
     rng = np.random.default_rng(17)
     mats = {**solver_family_matrices(), **driver_matrices()}
     worst = {torch.float64: (0.0, 0.0), torch.float32: (0.0, 0.0)}
+    ran = set()
+    cases = {}
     for name, K in mats.items():
         op = make_operator(K, dtype=torch.float64, device=device)
-        b64, offs, n = op.prepare(op.vals), op.packed, K.shape[0]
-        X64 = torch.as_tensor(rng.standard_normal((max(MATMAT_BLOCKS), n)),
+        cases[name] = (op.prepare(op.vals), op.packed,
+                       MATMAT_COVER_BLOCKS + MATMAT_BLOCKS)
+        del op
+    for name, (b, offs) in synthetic_operators(rng).items():
+        cases[name] = (torch.as_tensor(b, device=device), offs,
+                       MATMAT_COVER_BLOCKS + (5, 8))
+    for name, (b64, offs, blocks) in cases.items():
+        n = b64.shape[1]
+        X64 = torch.as_tensor(rng.standard_normal((max(blocks), n)),
                               device=device)
         for dtype in (torch.float64, torch.float32):
             bands, Xd = b64.to(dtype), X64.to(dtype)
-            for nb in MATMAT_BLOCKS:
+            for nb in blocks:
                 e = hold_dia_matmat(bands, Xd[:nb].contiguous(), offs,
                                     f"{name} B={nb} {dtype}")
+                ran.add(matmat_instance(n, nb, offs.k, dtype))
                 worst[dtype] = (max(worst[dtype][0], e[0]),
                                 max(worst[dtype][1], e[1]))
-    log(f"dia_matmat: {len(mats)} operators x B in {list(MATMAT_BLOCKS)}: "
-        f"err f64 {worst[torch.float64][1] / 2.0 ** -52:.2f}, f32 "
+    reachable = {matmat_instance(SYNTH_N, nb, k, dtype)
+                 for k in range(1, 49) for nb in range(1, 65)
+                 for dtype in (torch.float32, torch.float64)}
+    if reachable - ran:
+        raise RuntimeError(f"dia_matmat: the correctness loop never ran the "
+                           f"instances {sorted(reachable - ran)}")
+    log(f"dia_matmat: {len(mats)} operators x B in "
+        f"{list(MATMAT_COVER_BLOCKS + MATMAT_BLOCKS)} and "
+        f"{len(SYNTH_BUCKETS)} random ones (n = {SYNTH_N}, "
+        f"{list(SYNTH_BUCKETS)} bands): err f64 "
+        f"{worst[torch.float64][1] / 2.0 ** -52:.2f}, f32 "
         f"{worst[torch.float32][1] / 2.0 ** -23:.2f} ulp of sum|terms| "
-        f"(tol 4); every row equal to dia_spmv's bit for bit")
+        f"(tol 4); every row equal to dia_spmv's bit for bit; all "
+        f"{len(reachable)} instances the launcher can pick ran "
+        f"(type, bucket, VB, rounds): {sorted(reachable)}")
+    del cases
 
-    timed = {}
-    for name, blocks in ((f"aniso{DEFL_NX}", (8, 14)),
-                         (f"neumann{DEFL_NX}", (6, 12))):
-        K = mats[name]
+    one = torch.zeros(1, device=device)
+    timed, per_vec = {}, {}
+    for name, blocks in MATMAT_SWEEP:
+        K = mats[name] if name in mats else matmat_matrix(name)
         op = make_operator(K, dtype=torch.float64, device=device)
         b64, offs, n = op.prepare(op.vals), op.packed, K.shape[0]
         crow = torch.as_tensor(K.indptr.astype(np.int32), device=device)
         col = torch.as_tensor(K.indices.astype(np.int32), device=device)
+        # fewer launches a graph beyond L2, where one launch is ~50 us and
+        # the plain version ~1 ms
+        launches = 20 if n > 100000 else 100
         for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
             bands = b64.to(dtype)
             A = torch.sparse_csr_tensor(
@@ -805,49 +874,75 @@ def check_dia_matmat(device):
                                        f"{lib_diff:.3e}")
                 rows = [X[j] for j in range(nb)]
                 graphs = {
-                    "kernel": capture(
-                        lambda: dia_matmat_packed(bands, X, offs)),
-                    "k1_rows": capture(lambda: [
-                        dia_matvec_packed(bands, r, offs) for r in rows]),
-                    "plain": capture(lambda: dia_matmat_reference(
-                        bands, X, offs.offsets))}
+                    "kernel": lambda: dia_matmat_packed(bands, X, offs),
+                    "floor": lambda: one.zero_(),
+                    "k1_rows": lambda: [
+                        dia_matvec_packed(bands, r, offs) for r in rows],
+                    "plain": lambda: dia_matmat_reference(
+                        bands, X, offs.offsets)}
+                if baseline is not None and dtype in baseline["spmm"]:
+                    base = caller_mm(baseline["spmm"][dtype], bands, X, offs)
+                    if not torch.equal(base(), Y):
+                        raise RuntimeError(f"the baseline dia_matmat {name} "
+                                           f"B={nb} {tag} differs from the "
+                                           f"kernel")
+                    graphs["baseline"] = base
+                graphs = {k: capture(fn, launches)
+                          for k, fn in graphs.items()}
                 try:
                     graphs["library"] = capture(
-                        lambda: torch.sparse.mm(A, XT))
+                        lambda: torch.sparse.mm(A, XT), launches)
                 except RuntimeError as e:
                     # timed with its host issue instead (events around
                     # back-to-back calls), and said so
                     log(f"cuSPARSE SpMM is not capturable ({e}); timed "
                         f"by events")
-                dev = replay_us(graphs)
+                dev = replay_us(graphs, launches=launches)
                 if "library" not in dev:
                     dev["library"] = event_ms(
                         lambda: torch.sparse.mm(A, XT), reps=20) * 1e3
                 del graphs
-                size = torch.finfo(dtype).bits // 8
-                t_bytes = (offs.k * n + 2 * nb * n) * size / HBM_BYTES_PER_S
-                t_ops = 2 * offs.k * n * nb / PEAK_FLOPS[dtype]
-                bound_us = max(t_bytes, t_ops) * 1e6
-                r = {"device_us": dev["kernel"], "bound_us": bound_us,
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations",
-                     "roofline_share": bound_us / dev["kernel"],
+                b_ms, b_by = bound_mm(n, offs.k, nb, dtype)
+                plan = matmat_plan(n, nb, offs.k, dtype)
+                r = {"device_us": dev["kernel"], "bound_us": b_ms * 1e3,
+                     "bound_by": b_by,
+                     "roofline_share": b_ms * 1e3 / dev["kernel"],
+                     "baseline_us": dev.get("baseline"),
+                     "floor_us": dev["floor"],
                      "k1_rows_us": dev["k1_rows"],
                      "plain_us": dev["plain"], "library_us": dev["library"],
-                     "library_rel_diff": lib_diff}
-                timed[f"{name} B={nb} {tag}"] = r
-                log(f"dia_matmat {tag} {name} B={nb}: n={n} k={offs.k}; "
-                    f"device us/launch: kernel {r['device_us']:.3f}, "
-                    f"{nb} K1 launches {r['k1_rows_us']:.3f}, plain "
-                    f"{r['plain_us']:.3f}, cuSPARSE SpMM "
-                    f"{r['library_us']:.3f} (rel diff {lib_diff:.1e}); "
-                    f"bound {bound_us:.3f} ({r['bound_by']}), roofline "
-                    f"share {r['roofline_share']:.3f}")
+                     "library_rel_diff": lib_diff, "plan": plan}
+                key = f"{name} B={nb} {tag}"
+                timed[key] = r
+                step = ""
+                if nb == blocks[1]:
+                    first = timed[f"{name} B={blocks[0]} {tag}"]
+                    per_vec[f"{name} {tag}"] = (
+                        (r["device_us"] - first["device_us"])
+                        / (blocks[1] - blocks[0]))
+                    step = (f"; per added vector (B = {blocks[0]} -> "
+                            f"{blocks[1]}) {per_vec[f'{name} {tag}']:.3f}")
+                base_txt = (f", baseline {r['baseline_us']:.3f}"
+                            if r["baseline_us"] is not None else "")
+                log(f"dia_matmat {tag} {name} B={nb}: n={n} k={offs.k} "
+                    f"(VB {plan['vb']}, {plan['threads']} threads x "
+                    f"{plan['blocks']} blocks); device us/launch: kernel "
+                    f"{r['device_us']:.3f}{base_txt}, empty launch "
+                    f"{r['floor_us']:.3f}, {nb} K1 launches "
+                    f"{r['k1_rows_us']:.3f}, plain {r['plain_us']:.3f}, "
+                    f"cuSPARSE SpMM {r['library_us']:.3f} (rel diff "
+                    f"{lib_diff:.1e}); bound {r['bound_us']:.3f} "
+                    f"({b_by}), roofline share "
+                    f"{r['roofline_share']:.3f}{step}")
+                del X, XT, Y, rows
             del A
+        del op, b64, crow, col, K
+        torch.cuda.empty_cache()
     return {"max_abs_err": max(w[0] for w in worst.values()),
             "f64_err_ulp": worst[torch.float64][1] / 2.0 ** -52,
             "f32_err_ulp": worst[torch.float32][1] / 2.0 ** -23,
-            "timed": timed}
+            "instances": len(reachable), "timed": timed,
+            "us_per_added_vector": per_vec}
 
 
 def check_dense_matvec(device):
@@ -2705,15 +2800,19 @@ def main(argv=None) -> int:
         baseline = None
     log(f"build: {sources}{' and the baseline dia_spmv' if baseline else ''}"
         f" in {time.perf_counter() - t0:.2f} s")
-    for name, out in _build.BUILD_LOG.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    spills = []
+    for name in _build.BUILD_LOG:
+        for fn, (regs, st, ld) in _build.ptxas_report(name).items():
+            log(f"  {name}: {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+            if st or ld:
+                spills.append(fn)
+    log(f"build: kernel instances that spill: {spills or 'none'}")
 
     # -- 3. kernels against their plain versions ----------------------------
     dia = check_dia_kernel(device, baseline)
     dia_solver_err = check_dia_solver_shapes(device)
-    matmat = check_dia_matmat(device)
+    matmat = check_dia_matmat(device, baseline)
     mv = check_dense_matvec(device)
 
     # -- 4. probe path ----------------------------------------------------------
@@ -2974,14 +3073,20 @@ def main(argv=None) -> int:
         "bound_ms": mm18["bound_us"] * 1e-3, "bound_by": mm18["bound_by"],
         "library_ms": mm18["library_us"] * 1e-3,
         "k1_rows_ms": mm18["k1_rows_us"] * 1e-3,
+        "baseline_ms": (mm18["baseline_us"] * 1e-3
+                        if mm18["baseline_us"] is not None else None),
+        "instances_run": matmat["instances"],
+        "instances_that_spill": [f for f in spills if "spmm" in f],
+        "us_per_added_vector": matmat["us_per_added_vector"],
         "library": "torch.sparse.mm on a torch.sparse_csr_tensor (cuSPARSE "
                    "SpMM)",
         "times_are": f"device time per launch by CUDA-graph replay of 100 "
                      f"launches, aniso{DEFL_NX} (phase 18) B = 8 in f64; "
                      f"per shape, B and type in sweep (us)",
         "sweep": {k: {f: r[f] for f in (
-            "device_us", "bound_us", "roofline_share", "k1_rows_us",
-            "plain_us", "library_us")} for k, r in matmat["timed"].items()}
+            "device_us", "baseline_us", "bound_us", "floor_us",
+            "k1_rows_us", "plain_us", "library_us")}
+            for k, r in matmat["timed"].items()}
         }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

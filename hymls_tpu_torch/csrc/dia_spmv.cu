@@ -54,13 +54,48 @@
 // replaces PallasDiaMatvec under jax.vmap: the JAX package's batched
 // deflation setup (hymls_tpu/solvers/deflation.py:102 and
 // hymls_tpu/solvers/solver.py:518-519) maps DiaOperator.matvec_prepared
-// over a block of vectors.  Its least traffic is (k * n + 2 * nvec * n)
-// * sizeof(T) bytes at 3.35 TB/s: the bands move once for the whole
-// block, where nvec launches of the single-vector kernel move them nvec
-// times.  A simple design: one thread per row keeps the row's band
-// values in registers and loops over the vectors, summing each exactly
-// as dia_spmv_kernel does, so that each row of Y equals a single-vector
-// launch on that row of X bit for bit.
+// over a block of vectors.  What bounds it on an H100: the bands move
+// once for the block, so the least traffic is (k * n + 2 * nvec * n) *
+// sizeof(T) bytes at 3.35 TB/s.  The deflation setups' blocks (n = 1024
+// to 16384, 5 bands, 5 to 16 vectors) fit in L2 many times over: there a
+// call is bound by the launch and by how many dependent L2 round trips
+// a thread waits.  What the design does about that:
+//
+//   * A grid of row tiles x vector groups: a thread takes one row of VB
+//     vectors (VB = 1, 2, 4 or 8, a template parameter), so the warps in
+//     flight grow by nvec / VB over one thread a row.  The 1-D grid runs
+//     the group index fastest, so that the groups of one row tile run
+//     together and, beyond L2, read the tile's bands from L2 after the
+//     first group brought them from HBM.  A 1-D grid has no 65535 cap.
+//   * A thread issues all its loads before its FMAs: the row's band
+//     values and, for each band, the x values of its VB vectors.  A
+//     group then waits about one L2 round trip, not one per vector.
+//   * Registers bound VB: a thread holds about G (1 + VB) + VB values of
+//     T for G bands a round.  spmm_vb_cap: VB up to 4 for up to 24
+//     bands in f32 and 20 in f64, then 2, and 1 beyond 32 bands in f64,
+//     whose buckets of 40 and 48 bands load in two rounds.  No instance
+//     spills (ptxas: at most 223 registers, f64 with 20 bands and VB 4).
+//     VB is the cap or the next power of two of nvec, if that is
+//     smaller; a last group with fewer vectors is predicated, not padded.
+//   * The block shrinks from 128 to 32 threads until the grid has two
+//     blocks per SM, as for dia_spmv_kernel (from 256 there).
+//
+// Measured on an H100 (tools/dia_spmv_sweep.py, PERF.md Findings):
+// VB 4 beat VB 8 at every timed shape and type (VB 8 halves the warps
+// and nearly doubles the registers), and beat VB 2 at B = 12-14 but
+// for one tie; VB 2 was up to 0.11 us faster at B = 6-8 in L2.  Blocks
+// of 128 threads beat 256 beyond L2 (65.4 against 70.4 us, 5 bands,
+// n = 2^20, B = 8, f64).
+// Not tried: staging a tile's x windows in shared memory, which lost
+// for dia_spmv_kernel at every shape.
+//
+// The launcher picks the instance (bucket, VB, rounds) and the block
+// from the shapes alone (spmm_plan, exported as hymls_dia_spmm_plan so
+// that a caller can list the instances it reaches).  The sum is
+// dia_spmv_kernel's per (v, i): band order, from 0, one fused
+// multiply-add per band, zero outside [0, n), so every row of Y equals a
+// dia_spmv launch on that row of X bit for bit; the parallelism is only
+// across rows and vectors.
 //
 // The offsets are passed by value in a fixed struct (48 is the band cap
 // of make_operator), so the kernel needs no device array of offsets.
@@ -131,37 +166,61 @@ dia_spmv_kernel(const T* __restrict__ bands, int ld,
 }
 
 // The multi-column form: Y[v * n + i] = sum_k bands[k * ld + i] *
-// X[v * n + i + off_k] for the nvec rows of X (each a vector).  One
-// thread per row: its band values are loaded once into registers, then
-// each vector is summed as dia_spmv_kernel sums it (band order, from 0,
-// one FMA per band, zero outside [0, n)), so that every row of Y equals
-// a dia_spmv launch on that row of X bit for bit.  Indices are 32-bit
-// (the launcher checks nvec * n < 2^31).
-template <typename T, int KB>
+// X[v * n + i + off_k] for the nvec rows of X (each a vector).  Block
+// b takes row tile b / ngroups and vector group b % ngroups (the group
+// fastest); a thread takes one row of the group's VB vectors.  Per round
+// of G bands it issues the G band loads and the G * VB x loads, then the
+// FMAs; each vector's sum is dia_spmv_kernel's (band order, from 0, one
+// FMA per band, zero outside [0, n)), so every row of Y equals a
+// dia_spmv launch on that row of X bit for bit.  Vectors past nvec in
+// the last group are predicated off.  Indices are 32-bit (the launcher
+// checks nvec * n < 2^31).
+template <typename T, int KB, int VB, int ROUNDS>
 __global__ void __launch_bounds__(kMaxThreads)
 dia_spmm_kernel(const T* __restrict__ bands, int ld,
                 const T* __restrict__ x, T* __restrict__ y, int n, int nvec,
-                DiaOffsets offs) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                int ngroups, DiaOffsets offs) {
+    const int tile = blockIdx.x / ngroups;
+    const int v0 = (blockIdx.x - tile * ngroups) * VB;
+    const int i = tile * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    T bv[KB];
+    const int nv = nvec - v0;            // vectors of this group: min(VB, nv)
+    const T* xg = x + v0 * n;
+    constexpr int G = (KB + ROUNDS - 1) / ROUNDS;
+    T acc[VB];
 #pragma unroll
-    for (int b = 0; b < KB; ++b)
-        if (b < offs.k) bv[b] = __ldg(bands + (b * ld + i));
-#pragma unroll 1
-    for (int v = 0; v < nvec; ++v) {
-        const T* xv = x + v * n;
-        T acc = T(0);
+    for (int v = 0; v < VB; ++v) acc[v] = T(0);
 #pragma unroll
-        for (int b = 0; b < KB; ++b) {
-            if (b < offs.k) {
+    for (int g0 = 0; g0 < KB; g0 += G) {
+        T bv[G], xv[G][VB];
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            const int b = g0 + u;
+            if (b < KB && b < offs.k) {
+                bv[u] = __ldg(bands + (b * ld + i));
                 const int c = i + offs.v[b];
-                const T xb = (c >= 0 && c < n) ? __ldg(xv + c) : T(0);
-                acc = fma_t(bv[b], xb, acc);
+                const bool in = c >= 0 && c < n;
+#pragma unroll
+                for (int v = 0; v < VB; ++v)
+                    xv[u][v] = (in && v < nv) ? __ldg(xg + (v * n + c)) : T(0);
             }
         }
-        y[v * n + i] = acc;
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            const int b = g0 + u;
+            if (b < KB && b < offs.k) {
+#pragma unroll
+                for (int v = 0; v < VB; ++v)
+                    acc[v] = fma_t(bv[u], xv[u][v], acc[v]);
+            }
+        }
+        // keep the next round's loads behind this round's FMAs
+        if (ROUNDS > 1) asm volatile("" ::: "memory");
     }
+    T* yg = y + v0 * n + i;
+#pragma unroll
+    for (int v = 0; v < VB; ++v)
+        if (v < nv) yg[v * n] = acc[v];
 }
 
 // SMs of the current device, queried once per device
@@ -230,15 +289,6 @@ int launch_bucket(const T* bands, int ld, const T* x, T* y, int n,
                                    stream);
 }
 
-template <typename T, int KB>
-int launch_spmm_bucket(const T* bands, int ld, const T* x, T* y, int n,
-                       int nvec, const DiaOffsets& offs, cudaStream_t stream) {
-    const int threads = block_threads(n, sm_count());
-    dia_spmm_kernel<T, KB><<<(n + threads - 1) / threads, threads, 0,
-                             stream>>>(bands, ld, x, y, n, nvec, offs);
-    return (int)cudaGetLastError();
-}
-
 // Calls f(std::integral_constant<int, KB>) for the band bucket KB of k.
 template <typename F>
 int by_bucket(int k, F&& f) {
@@ -252,6 +302,99 @@ int by_bucket(int k, F&& f) {
     if (k <= 32) return f(integral_constant<int, 32>{});
     if (k <= 40) return f(integral_constant<int, 40>{});
     return f(integral_constant<int, 48>{});
+}
+
+// The band bucket of k, as by_bucket picks it.
+int bucket_of(int k) {
+    return by_bucket(k, [](auto kb) { return decltype(kb)::value; });
+}
+
+// The multi-column kernel's largest VB for band bucket kb (see the
+// note at the top).  HYMLS_SPMM_VB_CAP (a build flag) replaces it for
+// every bucket, for side-by-side timing of the choices.
+constexpr int spmm_vb_cap(int kb, bool f64) {
+#ifdef HYMLS_SPMM_VB_CAP
+    return (void)kb, (void)f64, HYMLS_SPMM_VB_CAP;
+#else
+    return f64 ? (kb <= 20 ? 4 : kb <= 32 ? 2 : 1) : (kb <= 24 ? 4 : 2);
+#endif
+}
+
+// Rounds of the band loads: two for the f64 buckets of 40 and 48 bands,
+// which one round would hold in about 200 registers (no timed shape has
+// more than 19 bands).
+constexpr int spmm_rounds(int kb, bool f64) {
+    return f64 && kb > 32 ? 2 : 1;
+}
+
+// The multi-column kernel's largest block; a build flag may set it.
+#ifndef HYMLS_SPMM_MAX_THREADS
+#define HYMLS_SPMM_MAX_THREADS 128
+#endif
+
+// What the multi-column launcher runs for a shape: the instance (band
+// bucket, VB, rounds) and the launch (threads a block, blocks).
+struct SpmmPlan {
+    int kb, vb, rounds, threads, blocks, ngroups;
+};
+
+SpmmPlan spmm_plan(int k, int n, int nvec, bool f64, int sms) {
+    SpmmPlan p;
+    p.kb = bucket_of(k);
+    p.rounds = spmm_rounds(p.kb, f64);
+    const int cap = spmm_vb_cap(p.kb, f64);
+    p.vb = 1;
+    while (p.vb < cap && p.vb < nvec) p.vb *= 2;
+    p.ngroups = (nvec + p.vb - 1) / p.vb;
+    // halved from the largest block until the grid has two blocks per SM
+    p.threads = HYMLS_SPMM_MAX_THREADS;
+    while (p.threads > kMinThreads &&
+           (long long)((n + p.threads - 1) / p.threads) * p.ngroups < 2 * sms)
+        p.threads /= 2;
+    p.blocks = (n + p.threads - 1) / p.threads * p.ngroups;
+    return p;
+}
+
+template <typename T, int KB, int VB>
+int launch_spmm_vb(const T* bands, int ld, const T* x, T* y, int n,
+                   int nvec, const DiaOffsets& offs, const SpmmPlan& p,
+                   cudaStream_t stream) {
+    constexpr int R = spmm_rounds(KB, sizeof(T) == 8);
+    dia_spmm_kernel<T, KB, VB, R><<<p.blocks, p.threads, 0, stream>>>(
+        bands, ld, x, y, n, nvec, p.ngroups, offs);
+    return (int)cudaGetLastError();
+}
+
+// The instance of p.vb for bucket KB; only VB up to the bucket's cap is
+// compiled.
+template <typename T, int KB>
+int launch_spmm_bucket(const T* bands, int ld, const T* x, T* y, int n,
+                       int nvec, const DiaOffsets& offs, const SpmmPlan& p,
+                       cudaStream_t stream) {
+    constexpr int CAP = spmm_vb_cap(KB, sizeof(T) == 8);
+    static_assert(CAP == 1 || CAP == 2 || CAP == 4 || CAP == 8,
+                  "VB is 1, 2, 4 or 8");
+    switch (p.vb) {
+    case 8:
+        if constexpr (CAP >= 8)
+            return launch_spmm_vb<T, KB, 8>(bands, ld, x, y, n, nvec, offs,
+                                            p, stream);
+        break;
+    case 4:
+        if constexpr (CAP >= 4)
+            return launch_spmm_vb<T, KB, 4>(bands, ld, x, y, n, nvec, offs,
+                                            p, stream);
+        break;
+    case 2:
+        if constexpr (CAP >= 2)
+            return launch_spmm_vb<T, KB, 2>(bands, ld, x, y, n, nvec, offs,
+                                            p, stream);
+        break;
+    case 1:
+        return launch_spmm_vb<T, KB, 1>(bands, ld, x, y, n, nvec, offs, p,
+                                        stream);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 // The offsets as the kernels take them.  A band wholly outside [0, n)
@@ -288,19 +431,24 @@ int launch(const void* bands, long long ld, const void* x, void* y,
 }
 
 // x and y are (nvec, n) row-major; nvec * n < 2^31 keeps every vector
-// element's index inside 32 bits
+// element's index, and the block count, inside 32 bits
+bool spmm_args_ok(int k, long long ld, long long n, long long nvec) {
+    return args_ok(k, ld, n) && nvec >= 0 && nvec * n < (1LL << 31);
+}
+
 template <typename T>
 int launch_spmm(const void* bands, long long ld, const void* x, void* y,
                 long long n, long long nvec, const void* offsets, int k,
                 void* stream) {
-    if (!args_ok(k, ld, n) || nvec < 0 || nvec * n >= (1LL << 31))
-        return (int)cudaErrorInvalidValue;
+    if (!spmm_args_ok(k, ld, n, nvec)) return (int)cudaErrorInvalidValue;
     if (n == 0 || nvec == 0) return (int)cudaSuccess;
     const DiaOffsets offs = pack_offsets(offsets, k, n);
+    const SpmmPlan p = spmm_plan(k, (int)n, (int)nvec, sizeof(T) == 8,
+                                 sm_count());
     return by_bucket(k, [&](auto kb) {
         return launch_spmm_bucket<T, decltype(kb)::value>(
             static_cast<const T*>(bands), (int)ld, static_cast<const T*>(x),
-            static_cast<T*>(y), (int)n, (int)nvec, offs,
+            static_cast<T*>(y), (int)n, (int)nvec, offs, p,
             static_cast<cudaStream_t>(stream));
     });
 }
@@ -331,6 +479,23 @@ int hymls_dia_spmm_f64(const void* bands, long long ld, const void* x,
                        void* y, long long n, long long nvec,
                        const void* offsets, int k, void* stream) {
     return launch_spmm<double>(bands, ld, x, y, n, nvec, offsets, k, stream);
+}
+
+// The multi-column launcher's choice for a shape, without a launch:
+// out = {band bucket, VB, rounds, threads a block, blocks}.  dtype_bytes
+// is 4 or 8; returns cudaErrorInvalidValue where a launch would.
+int hymls_dia_spmm_plan(long long n, long long nvec, int k, int dtype_bytes,
+                        int* out) {
+    if (!spmm_args_ok(k, n, n, nvec) || (dtype_bytes != 4 && dtype_bytes != 8))
+        return (int)cudaErrorInvalidValue;
+    const SpmmPlan p = spmm_plan(k, (int)n, (int)(nvec > 0 ? nvec : 1),
+                                 dtype_bytes == 8, sm_count());
+    out[0] = p.kb;
+    out[1] = p.vb;
+    out[2] = p.rounds;
+    out[3] = p.threads;
+    out[4] = p.blocks;
+    return (int)cudaSuccess;
 }
 
 }  // extern "C"

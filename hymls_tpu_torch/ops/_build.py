@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -83,6 +84,50 @@ def build(names: Iterable[str]) -> None:
             failed.append(f"{name}.cu (nvcc exit {p.returncode}):\n{out}")
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+
+
+def ptxas_report(name: str) -> Dict[str, tuple]:
+    """`parse_ptxas` of BUILD_LOG[name] (empty if the source was not
+    built in this process)."""
+    return parse_ptxas(BUILD_LOG.get(name, ""))
+
+
+def parse_ptxas(text: str) -> Dict[str, tuple]:
+    """{kernel instance: (registers, spill store bytes, spill load
+    bytes)} from nvcc's output with `-Xptxas -v`.  Instances of the
+    package's kernel templates are named as `kernel<type,N,...>`; others
+    keep ptxas's mangled name."""
+    out, fn, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = _short_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), *spills)
+            fn = None
+    return out
+
+
+def _short_name(mangled: str) -> str:
+    """`dia_spmm_kernel<double,8,4,1>` for a mangled instance of a
+    template `*_kernel` with a float or double and int arguments: the
+    name is the one whose length prefix ends where it starts."""
+    for m in re.finditer(r"_kernelI([fd])((?:Li\d+E)+)E", mangled):
+        e = m.start() + len("_kernel")
+        for s in range(m.start(), 0, -1):
+            if any(mangled[s - k:s].isdigit() and int(mangled[s - k:s]) ==
+                   e - s for k in (1, 2, 3)):
+                args = ["float" if m.group(1) == "f" else "double",
+                        *re.findall(r"Li(\d+)E", m.group(2))]
+                return f"{mangled[s:e]}<{','.join(args)}>"
+    return mangled
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,10 +22,11 @@ of shape (B, n), one vector per row:
     Y[c, i] = sum_k bands[k, i] * X[c, i + offsets[k]]
 
 On a CUDA tensor it is one launch of the kernel's multi-column entry
-point (the bands read once for the block), which replaces
-`PallasDiaMatvec` under `jax.vmap` in the JAX package's batched
-deflation setup; each row of Y equals `dia_matvec` of that row of X bit
-for bit.  On a CPU tensor it runs `dia_matmat_reference`.
+point (the bands read once for the block; a grid of row tiles x groups
+of up to 8 vectors, `matmat_plan` says which instance a shape takes),
+which replaces `PallasDiaMatvec` under `jax.vmap` in the JAX package's
+batched deflation setup; each row of Y equals `dia_matvec` of that row
+of X bit for bit.  On a CPU tensor it runs `dia_matmat_reference`.
 """
 from __future__ import annotations
 
@@ -155,6 +156,31 @@ def _entry_mm(dtype: torch.dtype):
     return fn
 
 
+@functools.cache
+def _plan_entry():
+    lib = _build.load("dia_spmv")
+    fn = lib.hymls_dia_spmm_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def matmat_plan(n: int, nvec: int, k: int, dtype: torch.dtype) -> dict:
+    """What the multi-column kernel's launcher runs for B = `nvec`
+    vectors of n rows with k bands in `dtype`: the instance (`bucket`,
+    the band count compiled; `vb`, vectors a thread; `rounds` of band
+    loads) and the launch (`threads` a block, `blocks`).  Needs the
+    built library (a CUDA machine); raises where a launch would."""
+    out = (ctypes.c_int * 5)()
+    err = _plan_entry()(n, nvec, k, torch.finfo(dtype).bits // 8,
+                        ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"dia_matmat: no plan for B={nvec}, n={n}, k={k}, "
+                         f"{dtype} (CUDA error {err})")
+    return dict(zip(("bucket", "vb", "rounds", "threads", "blocks"), out))
+
+
 def _launch(fn, dev: torch.device, args) -> int:
     """fn(*args, stream) on `dev`'s current stream.  The raw handle of
     the stream: 0.1 us against ~3 us for
@@ -209,14 +235,16 @@ def dia_matmat_packed(bands: torch.Tensor, X: torch.Tensor,
     dev = X.device
     if dev.type == "cpu":
         return dia_matmat_reference(bands, X, offs.offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"dia_matmat: unsupported device {dev}")
+    # the kernel's limits, checked before the device so that a tensor
+    # without storage (device "meta") shows them
     nvec, n = X.shape
     if n >= _MAX_ROWS or offs.k * n >= _MAX_ELEMENTS or \
             nvec * n >= _MAX_ELEMENTS:
         raise ValueError(f"dia_matmat kernel: {nvec} vectors of n = {n} "
                          f"with {offs.k} bands is beyond its 32-bit "
                          f"indices")
+    if dev.type != "cuda":
+        raise ValueError(f"dia_matmat: unsupported device {dev}")
     fn = _entry_mm(X.dtype)
     Y = torch.empty_like(X)
     if n == 0 or nvec == 0:

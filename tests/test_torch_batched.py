@@ -47,7 +47,7 @@ from hymls_tpu_torch.ops.dia_spmv import (DiaOffsets, dia_matmat,
                                           dia_matvec_reference)
 from hymls_tpu_torch.solvers import krylov as tkrylov
 from hymls_tpu_torch.stencils import (create_nullspace, create_testvector,
-                                      laplace2d_neumann)
+                                      laplace2d_neumann, stokes3d)
 
 from _torch_parity import aniso_laplace, laplace_cfg, pair, problem, rel
 from test_torch_bgrid import _cfg as _bgrid_cfg
@@ -373,29 +373,38 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nvec", [1, 2, 3, 5, 8, 11, 17, 32],
+                         ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("matrix", ["aniso32", "aniso37", "stokes3d8"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-def test_cuda_dia_matmat_kernel(cuda_device, dt):
+def test_cuda_dia_matmat_kernel(cuda_device, dt, matrix, nvec):
     """The multi-column kernel on the card: one launch, each row equal
     to K1 on that row bit for bit, and the plain version within 4 ulp of
     sum_k |bands x| per element (the kernel fuses each product, the
-    plain version rounds it)."""
+    plain version rounds it).  Block sizes from one vector to four
+    groups of 8, some not a multiple of any group; the anisotropic
+    Laplace at 32^2 and at a ragged 37^2 (n = 1369, a multiple of no
+    row tile), and the 19-band 3-D Stokes operator at 8^3."""
     from hymls_tpu_torch.ops.dia_spmv import dia_matvec_packed
-    K = aniso_laplace(32)
+    K = {"aniso32": lambda: aniso_laplace(32),
+         "aniso37": lambda: aniso_laplace(37),
+         "stokes3d8": lambda: stokes3d(8, 8, 8).tocsr()}[matrix]()
     op = tspmv.DiaOperator(K, dtype=dt, device=cuda_device)
+    assert op.packed.k == (19 if matrix == "stokes3d8" else 5)
     bands = op.prepare(op.vals)
-    X = torch.as_tensor(_rows(K.shape[0], 8, 9), dtype=dt,
+    X = torch.as_tensor(_rows(K.shape[0], nvec, 9), dtype=dt,
                         device=cuda_device)
     before = dia_matmat.launches
     Y = op.matvec_prepared(bands, X)
     torch.cuda.synchronize()
     assert dia_matmat.launches == before + 1
-    for j in range(8):
+    for j in range(nvec):
         assert torch.equal(Y[j], dia_matvec_packed(bands, X[j], op.packed))
     ref = dia_matmat_reference(bands, X, op.offsets)
     scale = dia_matmat_reference(bands.abs(), X.abs(), op.offsets)
-    assert float(((Y - ref).abs() / scale).max()) <= \
-        4 * torch.finfo(dt).eps
+    scale = scale.clamp_min(torch.finfo(dt).tiny)
+    assert float(((Y - ref).abs() / scale).max()) <= 4 * torch.finfo(dt).eps
 
 
 @pytest.mark.cuda
