@@ -58,6 +58,8 @@ from .. import native as _native
 from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
 from ..ops.spmv import DiaOperator
+from ..utils.timings import count, prof
+from .structured import APPLY_LEVEL_SPANS
 from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
                     warm_inv as _warm_inv, warm_inv_chain as _warm_chain,
                     dense_factor as _dense_factor,
@@ -1139,23 +1141,26 @@ class Preconditioner:
         ots = [p.apply_ot for p in self.plans]
         facs = []
         for lev in range(self.max_level):
-            f, v = _compute_level(
-                v, dplans[lev], apply_ot=ots[lev], store_dtype=store,
-                prev=None if prev is None else prev["levels"][lev])
+            with prof(f"hymls.compute.L{lev}", 2):
+                f, v = _compute_level(
+                    v, dplans[lev], apply_ot=ots[lev], store_dtype=store,
+                    prev=None if prev is None else prev["levels"][lev])
             facs.append(f)
         coarse_args = (v, extra["rows"], extra["cols"], extra["diag_entry"],
                        extra["fix_rows"], self.coarse_plan.n)
         if border_vals is None:
-            coarse = _coarse_factor(
-                *coarse_args, store_dtype=store,
-                prev=None if prev is None else prev["coarse"])
+            with prof("hymls.compute.coarse", 2):
+                coarse = _coarse_factor(
+                    *coarse_args, store_dtype=store,
+                    prev=None if prev is None else prev["coarse"])
         else:
             V, W, C = border_vals
             for lev in range(self.max_level):
                 facs[lev]["border"], V, W, C = _compute_level_border(
                     facs[lev], dplans[lev], V, W, C, ots[lev])
-            coarse = _coarse_factor_aug(*coarse_args, V, W, C,
-                                        store_dtype=store)
+            with prof("hymls.compute.coarse", 2):
+                coarse = _coarse_factor_aug(*coarse_args, V, W, C,
+                                            store_dtype=store)
         fac = {"levels": facs, "coarse": coarse}
         return _cast_tree(fac, fdt, self.dtype) if self._upcast else fac
 
@@ -1167,14 +1172,17 @@ class Preconditioner:
         (n,) or a block (B, n) of vectors, one per row: a block runs
         the V-cycle once with a leading batch axis (the JAX package's
         `jax.vmap` of the apply), and T and T' as one multi-column DIA
-        product each."""
+        product each.  Inside the span `hymls.apply`, each level inside
+        `hymls.apply.L<l>` and the coarse solve inside
+        `hymls.apply.coarse`."""
         if self._structured_active:
             def apply(v):
                 return self._structured.apply(factors, v, aplans)
         else:
             def apply(v):
                 return self._apply_levels(factors, aplans, v)
-        return apply(b) if self._bgrid is None else self._bgrid(apply, b)
+        with prof("hymls.apply", 2):
+            return apply(b) if self._bgrid is None else self._bgrid(apply, b)
 
     def apply_generic(self, factors, dplans, b):
         """The generic gather V-cycle on a pruned generic factor tree
@@ -1195,10 +1203,13 @@ class Preconditioner:
 
         def solve_at(lev, rhs):
             if lev == self.max_level:
-                return _dense_solve(factors["coarse"], rhs)
-            return _apply_level(rhs, factors["levels"][lev], dplans[lev],
-                                lambda r: solve_at(lev + 1, r),
-                                apply_ot=self.plans[lev].apply_ot)
+                with prof("hymls.apply.coarse", 3):
+                    return _dense_solve(factors["coarse"], rhs)
+            with prof(APPLY_LEVEL_SPANS[lev], 3):
+                return _apply_level(rhs, factors["levels"][lev],
+                                    dplans[lev],
+                                    lambda r: solve_at(lev + 1, r),
+                                    apply_ot=self.plans[lev].apply_ot)
         return solve_at(0, b)
 
     def apply_bordered_fn(self, factors, dplans, b, T):
@@ -1243,19 +1254,25 @@ class Preconditioner:
         return self._factorize(K, prev=self._factors if warm else None)
 
     def _factorize(self, K, prev):
-        if K is not None:
-            if self._bgrid_T is not None:
-                K = self._transform_bgrid(K)
-            K = _canonical(K)
-            if K.nnz != self.K.nnz:
-                raise ValueError("matrix pattern changed")
-            self.K = K
-        vals = torch.as_tensor(self.K.data, dtype=self.factor_dtype,
-                               device=self.device)
-        self._factors = self.compute_fn(vals, self._dplans, self._extra_plan,
-                                        self._border, prev)
-        self._sfactors = (self.apply_factors_from(self._factors)
-                          if self._structured_active else None)
+        count("hymls.compute.calls")
+        with prof("hymls.compute", 1):
+            if K is not None:
+                if self._bgrid_T is not None:
+                    K = self._transform_bgrid(K)
+                K = _canonical(K)
+                if K.nnz != self.K.nnz:
+                    raise ValueError("matrix pattern changed")
+                self.K = K
+            vals = torch.as_tensor(self.K.data, dtype=self.factor_dtype,
+                                   device=self.device)
+            self._factors = self.compute_fn(vals, self._dplans,
+                                            self._extra_plan, self._border,
+                                            prev)
+            if self._structured_active:
+                with prof("hymls.compute.repack", 2):
+                    self._sfactors = self.apply_factors_from(self._factors)
+            else:
+                self._sfactors = None
         return self
 
     def set_border(self, V, W=None, C=None):

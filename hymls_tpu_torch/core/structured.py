@@ -44,10 +44,14 @@ import numpy as np
 import torch
 
 from ..parallel import collectives as C
+from ..utils.timings import prof
 from .dense import dense_solve as _dense_solve
 
 
 Off = Tuple[int, int, int]
+
+#: the `prof` span of the V-cycle's level l, made once: `hymls.apply.L<l>`
+APPLY_LEVEL_SPANS = tuple(f"hymls.apply.L{lev}" for lev in range(32))
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +997,12 @@ class StructuredProgram:
         return self._apply_level(0, sfactors, consts, b, _REPLICATED)
 
     def _apply_level(self, lev, sfactors, consts, b, sh):
+        """Level `lev` of the V-cycle and, through its Vsum solve, every
+        level below it, inside the span `hymls.apply.L<lev>`."""
+        with prof(APPLY_LEVEL_SPANS[lev], 3):
+            return self._level(lev, sfactors, consts, b, sh)
+
+    def _level(self, lev, sfactors, consts, b, sh):
         # all separator work happens in the flat slot space (every
         # template's slots concatenated, SW channels): a handful of
         # one-hot matmul folds and one roll per DISTINCT neighbour
@@ -1062,7 +1072,8 @@ class StructuredProgram:
                 x_next = _zext(x_next)[c["up"]].reshape(vs.shape)
         else:
             rhs = vs.reshape(-1)[consts["coarse"]["src"]]
-            sol = _dense_solve(sfactors["coarse"], rhs)
+            with prof("hymls.apply.coarse", 3):
+                sol = _dense_solve(sfactors["coarse"], rhs)
             x_next = _zext(sol)[consts["coarse"]["back"]].reshape(vs.shape)
         x_next = sh.cut(lev, x_next)
 

@@ -35,6 +35,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.timings import count, prof
+
 
 class KrylovResult(NamedTuple):
     x: torch.Tensor
@@ -74,8 +76,9 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
           prec: Optional[Callable] = None, *, tol: float = 1e-8,
           maxiter: int = 100, left: bool = False,
           scale_with_rhs: bool = False, restart: Optional[int] = None,
-          allreduce: Optional[Callable] = None, _scale=None) -> KrylovResult:
-    """Preconditioned GMRES.
+          allreduce: Optional[Callable] = None) -> KrylovResult:
+    """Preconditioned GMRES, inside the span `hymls.gmres`; adds its
+    iterations to the counter `hymls.gmres.iters`.
 
     op/prec: closures x -> A x and x -> M^{-1} x.
     left: left preconditioning (residual measured in preconditioned
@@ -85,13 +88,25 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     iterations run until convergence or until `maxiter` iterations
     have been spent (the cycle under way runs to its end).
     allreduce: the sum over the ranks, for owner-sharded vectors (see
-    the module docstring).
-    _scale: a restart cycle's convergence scale, that of the whole
-    solve."""
-    if restart is not None and restart < maxiter:
-        return _gmres_restarted(op, b, x0, prec, tol=tol, maxiter=maxiter,
-                                left=left, scale_with_rhs=scale_with_rhs,
-                                restart=restart, allreduce=allreduce)
+    the module docstring)."""
+    with prof("hymls.gmres", 2):
+        if restart is not None and restart < maxiter:
+            res = _gmres_restarted(op, b, x0, prec, tol=tol,
+                                   maxiter=maxiter, left=left,
+                                   scale_with_rhs=scale_with_rhs,
+                                   restart=restart, allreduce=allreduce)
+        else:
+            res = _gmres(op, b, x0, prec, tol=tol, maxiter=maxiter,
+                         left=left, scale_with_rhs=scale_with_rhs,
+                         allreduce=allreduce)
+    count("hymls.gmres.iters", res.iters)
+    return res
+
+
+def _gmres(op, b, x0, prec, *, tol, maxiter, left, scale_with_rhs,
+           allreduce, _scale=None) -> KrylovResult:
+    """Full GMRES (`gmres` without a restart); `_scale`, a restart
+    cycle's convergence scale, that of the whole solve."""
     norm, project, _ = _reductions(allreduce)
     n = b.shape[0]
     dtype = b.dtype
@@ -318,9 +333,9 @@ def _gmres_restarted(op, b, x0, prec, *, tol, maxiter, left,
 
     x, k, res, done = x0, 0, float("inf"), False
     while not done and k < maxiter:
-        inner = gmres(op, b, x, prec, tol=tol, maxiter=restart, left=left,
-                      scale_with_rhs=scale_with_rhs, allreduce=allreduce,
-                      _scale=scale0)
+        inner = _gmres(op, b, x, prec, tol=tol, maxiter=restart, left=left,
+                       scale_with_rhs=scale_with_rhs, allreduce=allreduce,
+                       _scale=scale0)
         x, k, res, done = inner.x, k + inner.iters, inner.relres, \
             inner.converged
     return KrylovResult(x=x, iters=k, relres=res, converged=done)
@@ -333,7 +348,17 @@ def cg(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     """Preconditioned conjugate gradients.  Works on negative-definite
     systems too (the CG formulas are invariant under a simultaneous
     sign flip of the operator and the preconditioner).  `allreduce` as
-    in `gmres`."""
+    in `gmres`.  Inside the span `hymls.cg`; adds its iterations to the
+    counter `hymls.gmres.iters`."""
+    with prof("hymls.cg", 2):
+        res = _cg(op, b, x0, prec, tol=tol, maxiter=maxiter,
+                  scale_with_rhs=scale_with_rhs, allreduce=allreduce)
+    count("hymls.gmres.iters", res.iters)
+    return res
+
+
+def _cg(op, b, x0, prec, *, tol, maxiter, scale_with_rhs,
+        allreduce) -> KrylovResult:
     norm, _, dot = _reductions(allreduce)
     if prec is None:
         prec = lambda x: x   # noqa: E731

@@ -25,6 +25,7 @@ import torch
 from ..config import Params
 from ..core.preconditioner import Preconditioner
 from ..ops.spmv import make_operator
+from ..utils.timings import count, profiled, prof
 from .solver import Solver
 from .krylov import KrylovResult
 from . import krylov
@@ -90,6 +91,7 @@ class IterativeRefinementSolver:
         self.solver.set_border(V, W, C)
         return self
 
+    @profiled("hymls.refine", 1)
     def refine(self, vals64, vals32, factors, aplans, b,
                apply_fn=None) -> KrylovResult:
         """The refinement loop: f64 residual -> f32 Krylov correction ->
@@ -97,7 +99,10 @@ class IterativeRefinementSolver:
         tolerance or `max_passes` passes ran.  `iters` counts the inner
         f32 iterations of all passes.  `apply_fn` (default the
         preconditioner's own) is the sharded structured apply under
-        'Distributed Apply'."""
+        'Distributed Apply'.  Inside the span `hymls.refine`, each pass's
+        f64 residual inside `hymls.refine.residual`; counts the solve in
+        `hymls.refine.solves` and each pass in `hymls.refine.passes`."""
+        count("hymls.refine.solves")
         pv64 = self.op64.prepare(vals64)
         pv32 = self.solver.op.prepare(vals32)
         mv32 = self.solver.op.matvec_prepared
@@ -132,10 +137,12 @@ class IterativeRefinementSolver:
                 res = krylov.gmres(op, r32, x32, prec, tol=tol_k,
                                    maxiter=self.inner_maxiter)
             x = x + res.x.to(torch.float64)
-            r = b - mv64(pv64, x)
-            rel = float(torch.linalg.norm(r)) / nb
+            with prof("hymls.refine.residual", 2):
+                r = b - mv64(pv64, x)
+                rel = float(torch.linalg.norm(r)) / nb
             iters += res.iters
             passes += 1
+            count("hymls.refine.passes")
         return KrylovResult(x=x, iters=iters, relres=rel,
                             converged=rel <= self.tol)
 
@@ -151,12 +158,15 @@ class IterativeRefinementSolver:
             return sapply, None
         return None, self.solver._make_dist()
 
+    @profiled("hymls.refine", 1)
     def refine_dist(self, dist, vals64, vals32, fac_st, b) -> KrylovResult:
         """`refine` in the owner layout (reference mixed.py:
         _build_fused_dist): f32 inner GMRES on the halo matvec and halo
         V-cycle, the f64 residual through the same exchange matvec, and
         every norm a psum, so that all ranks take the same passes.
-        Returns the result with the global x."""
+        Returns the result with the global x.  Spans and counters as
+        `refine`."""
+        count("hymls.refine.solves")
         pv64, pv32 = dist.prepare(vals64), dist.prepare(vals32)
         cg = self.solver.method == "CG"
         b_l = dist.scatter(b)
@@ -183,10 +193,12 @@ class IterativeRefinementSolver:
             res = krylov.cg(op, r32, x32, prec, **kw) if cg else \
                 krylov.gmres(op, r32, x32, prec, **kw)
             x = x + res.x.to(torch.float64)
-            r = b_l - dist.matvec(pv64, x)
-            rel = float(dist.norm(r)) / nb
+            with prof("hymls.refine.residual", 2):
+                r = b_l - dist.matvec(pv64, x)
+                rel = float(dist.norm(r)) / nb
             iters += res.iters
             passes += 1
+            count("hymls.refine.passes")
         return KrylovResult(x=dist.gather(x), iters=iters, relres=rel,
                             converged=rel <= self.tol)
 

@@ -1,16 +1,27 @@
 """Hierarchical wall-clock timers (reference Tools::StartTiming /
 StopTiming / PrintTiming, src/HYMLS_Tools.cpp:345-438,549), scope-based
 profiling with verbosity levels doubling as an indented function trace
-(reference HYMLS_PROF{,2,3} macros, src/HYMLS_Macros.hpp:55-129), and a
+(reference HYMLS_PROF{,2,3} macros, src/HYMLS_Macros.hpp:55-129), a
 host+device memory ledger (reference HYMLS_Malloc.cpp +
 Tools::StartMemory/PrintMemUsage), with a CUDA synchronize fence for
-device work.
+device work, and event counters.
+
+`prof(label, level)` is the port's one span primitive.  While a
+torch.profiler runs, every scope, at any level, is a profiler range
+named `label` on the profiler's clock, so the kernels, copies and
+runtime calls it launches nest inside it in the trace.  The level gates
+only the host-clock table of `print_timing` and the function trace.
+With no profiler running and the level above HYMLS_TIMING_LEVEL, a
+scope costs three checks and returns one shared object that does
+nothing.  `count(name, n)` adds to an always-on integer counter;
+`counter_snapshot()` reads them all and `print_timing()` lists them.
 
 Environment knobs (mirroring the reference's compile-time flags):
-  HYMLS_TIMING_LEVEL    0-3: scopes with level > this are no-ops
-                        (reference HYMLS_TIMING_LEVEL); default 1
+  HYMLS_TIMING_LEVEL    0-3: scopes with level > this are not timed on
+                        the host clock (reference HYMLS_TIMING_LEVEL);
+                        default 1
   HYMLS_FUNCTION_TRACING  "1": print indented ENTER/LEAVE lines for
-                        every active prof scope (reference
+                        every prof scope (reference
                         HYMLS_FUNCTION_TRACING / HYMLS_DEBUGGING)
 """
 from __future__ import annotations
@@ -22,6 +33,9 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import Dict
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
 _REGISTRY = []
@@ -116,31 +130,76 @@ def _prof_timer() -> "Timer":
     return _PROF_TIMER
 
 
-@contextmanager
-def prof(label: str, level: int = 1):
-    """Scope timer with a verbosity level; doubles as an indented
-    function trace when HYMLS_FUNCTION_TRACING=1 (the role of the
-    reference's HYMLS_PROF/HYMLS_PROF2/HYMLS_PROF3 macros,
-    src/HYMLS_Macros.hpp:55-129).  Scopes above HYMLS_TIMING_LEVEL cost
-    one comparison and nothing else."""
-    if level > TIMING_LEVEL and not FUNCTION_TRACING:
-        yield
-        return
-    if FUNCTION_TRACING:
-        print("  " * _TRACE_DEPTH[0] + f">> {label}", file=sys.stderr)
-        _TRACE_DEPTH[0] += 1
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        t = _prof_timer()
-        t._totals[label] += dt
-        t._counts[label] += 1
+class _Off:
+    """The scope of a `prof` call while nothing records it: one shared
+    instance that enters and leaves doing nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, val, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Scope:
+    """A recording `prof` scope: a profiler range while a profiler runs,
+    the host-clock table's row when `timed`, the function trace's two
+    lines when HYMLS_FUNCTION_TRACING is on."""
+    __slots__ = ("label", "timed", "rf", "t0")
+
+    def __init__(self, label: str, timed: bool):
+        self.label = label
+        self.timed = timed
+        self.rf = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            # a range of FUNCTION scope: unlike record_function's user
+            # scope it adds no device-side annotation event to the
+            # trace, only the host range the launches nest in
+            self.rf = _RecordFunctionFast(self.label)
+            self.rf.__enter__()
+        if FUNCTION_TRACING:
+            print("  " * _TRACE_DEPTH[0] + f">> {self.label}",
+                  file=sys.stderr)
+            _TRACE_DEPTH[0] += 1
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, typ, val, tb):
+        dt = time.perf_counter() - self.t0
+        if self.timed:
+            t = _prof_timer()
+            t._totals[self.label] += dt
+            t._counts[self.label] += 1
         if FUNCTION_TRACING:
             _TRACE_DEPTH[0] -= 1
-            print("  " * _TRACE_DEPTH[0] + f"<< {label} ({dt:.4f}s)",
+            print("  " * _TRACE_DEPTH[0] + f"<< {self.label} ({dt:.4f}s)",
                   file=sys.stderr)
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
+
+
+def prof(label: str, level: int = 1):
+    """Scope with a verbosity level (the role of the reference's
+    HYMLS_PROF/HYMLS_PROF2/HYMLS_PROF3 macros,
+    src/HYMLS_Macros.hpp:55-129): a profiler range named `label`
+    whenever a torch.profiler runs, whatever the level; timed on the
+    host clock into `print_timing`'s table when `level` <=
+    HYMLS_TIMING_LEVEL; an indented function trace line pair when
+    HYMLS_FUNCTION_TRACING=1.  With none of the three, it returns one
+    shared object that does nothing.  No scope synchronizes the card:
+    its host-clock time is the enqueue, not the device work."""
+    timed = level <= TIMING_LEVEL
+    if not (timed or FUNCTION_TRACING
+            or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Scope(label, timed or FUNCTION_TRACING)
 
 
 def profiled(label: str = None, level: int = 1):
@@ -176,12 +235,41 @@ def print_timing() -> str:
         lines.append(f"{key:{width}s} {tot:9.4f}s {cnt:6d} "
                      f"{tot / max(cnt, 1):9.4f}s")
     lines.append("=" * (width + 30))
+    if _COUNTERS:
+        cw = max(len(k) for k in _COUNTERS)
+        lines.append(f"{'counter':{cw}s} {'count':>12s}")
+        for name in sorted(_COUNTERS):
+            lines.append(f"{name:{cw}s} {_COUNTERS[name]:12d}")
+        lines.append("=" * (width + 30))
     return "\n".join(lines)
 
 
 def reset_timing():
-    """Clear the global timer registry (fresh aggregation window)."""
+    """Clear the global timer registry (fresh aggregation window); the
+    `prof` scopes start a new timer in it."""
+    global _PROF_TIMER
     _REGISTRY.clear()
+    _PROF_TIMER = None
+
+
+#: event counters by name, always on (`count`)
+_COUNTERS: Dict[str, int] = defaultdict(int)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTERS[name] += n
+
+
+def counter_snapshot() -> Dict[str, int]:
+    """Every counter's value now, as a new dict; the difference of two
+    snapshots counts what happened between them."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    """Set every counter back to zero."""
+    _COUNTERS.clear()
 
 
 def _host_rss() -> tuple:
