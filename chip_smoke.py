@@ -236,7 +236,17 @@ raises on failure (nonzero exit, no result line):
      each must have launched dia_matmat.  Then the
      3-D two-level configs on the structured apply (SUITE_GENERIC) once
      more with 'Structured Apply' False, under the same gates, their
-     solve s beside the structured run's.
+     solve s beside the structured run's;
+ 28. the V-cycle apply replayed from its CUDA graph
+     (core/apply_graph.py) against the eager apply, bit for bit:
+     cavity128 on one level (an LU coarse), a B = 8 block, stokes2 128^2
+     on three levels, the 8^3 B-grid configuration (K1 inside the
+     graph), capture on K_1 then compute(K_2), four recaptures of a
+     Newton sequence (the memory reserved must not grow), a capture
+     under torch.profiler and one that raises (eager, with a warning;
+     the next capture works); host issue and CUDA-event time per apply
+     of both.  Every apply_fn on the card before it replays too; phase
+     15 counts K1 launches per apply on the eager apply.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
@@ -1825,7 +1835,9 @@ def drive_bgrid(device):
         P.compute()
         v = torch.as_tensor(b, device=device)
         reset_counts()
-        P.apply_inverse(v)
+        # one eager apply: the first apply_fn also warms up and captures,
+        # and a replay runs the captured launches without counting them
+        P._apply_eager(P.apply_factors, P._aplans, v)
         per_apply = dia_matvec.launches
         S = Solver(K, P, params, device=device)
         reset_counts()
@@ -2403,6 +2415,178 @@ def drive_suite(device):
     return out
 
 
+def drive_apply_graph(device):
+    """Phase 28: the V-cycle apply replayed from its CUDA graph
+    (core/apply_graph.py) against the eager apply (`_apply_eager`), bit
+    for bit: cavity128 on one level (an LU coarse of more than 2048
+    unknowns), a B = 8 block, stokes2 128^2 on three levels, the 8^3
+    B-grid configuration (K1 inside the graph), the stale factor
+    (capture on K_1, compute(K_2), the apply equal to the eager one on
+    K_2), a Newton sequence of recaptures (the memory reserved must not
+    grow), a capture under torch.profiler and a capture that raises
+    (eager, then a capture of another key again).  Host issue and CUDA
+    event time per apply of both, and each capture's ms."""
+    import warnings
+    from hymls_tpu_torch import Preconditioner
+    from hymls_tpu_torch.ops.dia_spmv import dia_matvec
+    from hymls_tpu_torch.stencils import create_matrix, create_testvector
+    from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+    from hymls_tpu_torch.utils import timings
+
+    def counters(before):
+        now = timings.counter_snapshot()
+        return {k[len("hymls.apply."):]: now.get(k, 0) - before.get(k, 0)
+                for k in ("hymls.apply.graph_captures",
+                          "hymls.apply.graph_replays", "hymls.apply.eager")}
+
+    def held(tag, P, b, captures=1):
+        f, a = P.apply_factors, P._aplans
+        before = timings.counter_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x1 = P.apply_fn(f, a, b)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        x2 = P.apply_fn(f, a, b)
+        e = P._apply_eager(f, a, b)
+        c = counters(before)
+        if not (torch.equal(x1, e) and torch.equal(x2, e)):
+            raise RuntimeError(f"{tag}: the replayed apply differs from the "
+                               f"eager one by "
+                               f"{float((x2 - e).abs().max()):.3e}")
+        if c != {"graph_captures": captures, "graph_replays": 2,
+                 "eager": 1}:
+            raise RuntimeError(f"{tag}: counters {c}")
+        rec = {"n": b.shape[-1], "shape": list(b.shape),
+               "first_apply_ms": first_ms,
+               "issue_us": issue_us(lambda: P.apply_fn(f, a, b)),
+               "eager_issue_us": issue_us(lambda: P._apply_eager(f, a, b)),
+               "event_us": 1e3 * event_ms(lambda: P.apply_fn(f, a, b),
+                                          reps=10, inner=10, warmup=2),
+               "eager_event_us": 1e3 * event_ms(
+                   lambda: P._apply_eager(f, a, b), reps=10, inner=10,
+                   warmup=2)}
+        log(f"apply graph {tag}: {list(b.shape)} {b.dtype}, equal to the "
+            f"eager apply bit for bit; first apply (warm-up, capture, "
+            f"replay) {first_ms:.2f} ms; host issue {rec['issue_us']:.1f} "
+            f"us, eager {rec['eager_issue_us']:.1f}; per apply (CUDA "
+            f"events) {rec['event_us']:.1f} us, eager "
+            f"{rec['eager_event_us']:.1f}")
+        return rec
+
+    def f32(K, params):
+        P = Preconditioner(K, params, dtype=torch.float32, device=device,
+                           testvector=create_testvector(params, K))
+        return P.compute()
+
+    def vec(n, *shape, seed=0):
+        return torch.randn(*shape, n, dtype=torch.float32, device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               seed))
+
+    t_start = time.perf_counter()
+    out = {}
+    # cavity128, one level: the LU coarse
+    p = cavity64_params()
+    p.sublist("Problem")["nx"] = p.sublist("Problem")["ny"] = 128
+    K = cavity_jacobian(128, 128, re=1000.0).tocsr()
+    P = f32(K, p)
+    if "lu" not in P.apply_factors["coarse"]:
+        raise RuntimeError("cavity128: the coarse solve is not the LU one")
+    n = K.shape[0]
+    b = vec(n)
+    out["cavity128"] = held("cavity128", P, b)
+    out["cavity128_B8"] = held("cavity128 B=8", P, vec(n, 8, seed=1))
+    # the stale factor: capture on K_1, compute(K_2)
+    x_k1 = P.apply_fn(P.apply_factors, P._aplans, b)
+    P.compute(cavity_jacobian(128, 128, re=950.0).tocsr())
+    out["cavity128_stale"] = held("cavity128 after compute(K_2)", P, b)
+    if torch.equal(x_k1, P._apply_eager(P.apply_factors, P._aplans, b)):
+        raise RuntimeError("compute(K_2) left the apply unchanged")
+    # a Newton sequence: compute, capture, replays; nothing may pile up
+    reserved, capture_ms = [], []
+    before = timings.counter_snapshot()
+    for k, re in enumerate((960.0, 1010.0, 1040.0, 990.0)):
+        P.compute(cavity_jacobian(128, 128, re=re).tocsr())
+        f, a = P.apply_factors, P._aplans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.apply_fn(f, a, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        P.apply_fn(f, a, b)
+        torch.cuda.synchronize()
+        capture_ms.append((2 * t1 - t0 - time.perf_counter()) * 1e3)
+        reserved.append(torch.cuda.memory_reserved())
+    out["newton_sequence"] = {"capture_ms": capture_ms, "reserved_B": reserved,
+                              "peak_B": torch.cuda.max_memory_allocated()}
+    log(f"apply graph cavity128 Newton sequence: capture ms (first apply "
+        f"less a replay) {[round(c, 2) for c in capture_ms]}; memory "
+        f"reserved {reserved} B; peak allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    c = counters(before)
+    if reserved[-1] > reserved[1] or c != {
+            "graph_captures": 4, "graph_replays": 8, "eager": 0}:
+        raise RuntimeError(f"the recaptures: counters {c}, memory reserved "
+                           f"{reserved}")
+    # a capture under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    before = timings.counter_snapshot()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        P.compute(K)
+        xs = [P.apply_fn(P.apply_factors, P._aplans, b) for _ in range(3)]
+        torch.cuda.synchronize()
+    e = P._apply_eager(P.apply_factors, P._aplans, b)
+    c = counters(before)
+    if not all(torch.equal(x, e) for x in xs) or c["graph_captures"] != 1:
+        raise RuntimeError(f"cavity128 under the profiler: counters {c}, "
+                           f"equal {[torch.equal(x, e) for x in xs]}")
+    log("apply graph cavity128: captured under torch.profiler, equal to "
+        "the eager apply")
+    # a capture that raises: eager for its key, captures again after
+    f, a = P.apply_factors, P._aplans
+
+    def syncing(f, a, v):
+        float(v.sum())
+        return P._apply_body(f, a, v)
+
+    b2 = vec(n, 2, seed=2)
+    before = timings.counter_snapshot()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        y = P._graphs(syncing, f, a, b2)
+    c = counters(before)
+    if not torch.equal(y, P._apply_eager(f, a, b2)) or c != {
+            "graph_captures": 0, "graph_replays": 0, "eager": 1} or \
+            not any("could not be captured" in str(m.message) for m in w):
+        raise RuntimeError(f"a capture that raises: counters {c}, "
+                           f"{[str(m.message) for m in w]}")
+    out["cavity128_after_failed_capture"] = held(
+        "cavity128 B=3 after a failed capture", P, vec(n, 3, seed=3))
+    del P
+    # stokes2 128^2, three levels
+    p = stokes_params(128, 2, 3, "Skew Cartesian")
+    K = create_matrix(p).tocsr()
+    P = f32(K, p)
+    if not P._structured_active:
+        raise RuntimeError("stokes2 128^2 L3: not the structured apply")
+    out["stokes2_128_L3"] = held("stokes2 128^2 L3", P, vec(K.shape[0]))
+    del P
+    # the B-grid transform: K1 inside the graph
+    p = stokes_l2_params(8, True)
+    K = create_matrix(p).tocsr()
+    P = f32(K, p)
+    reset_counts()
+    out["stokes_L2_8_bgrid"] = rec = held("stokes_L2 8^3 B-grid", P,
+                                          vec(K.shape[0]))
+    rec["dia_spmv_wrapper_calls"] = dia_matvec.launches
+    if P._bgrid is None or dia_matvec.launches < 4:
+        raise RuntimeError(f"B-grid: {dia_matvec.launches} K1 wrapper calls")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 28 in {out['seconds']:.1f} s")
+    return out
+
+
 def timed_rpc(cli, req):
     """(response, s) of one bridge request with its file round trip."""
     t0 = time.perf_counter()
@@ -2926,6 +3110,9 @@ def main(argv=None) -> int:
     # -- 27. the config suite through the driver -----------------------------
     suite = drive_suite(device)
 
+    # -- 28. the apply replayed from its CUDA graph --------------------------
+    apply_graph = drive_apply_graph(device)
+
     # the card again: a tool that keeps only the end of the output keeps it
     log(f"total {time.perf_counter() - t_start:.1f} s on "
         f"{gpu_name_and_power()}")
@@ -2947,7 +3134,8 @@ def main(argv=None) -> int:
         "stokes32cube_skew_L2": stokes32, "deflated": deflated,
         "bordered_deflated": bordered_deflated, "complex": cplx,
         "eigen": eigen, "driver": driver, "bridge": bridge,
-        "plan_cache": cached, "distributed": distributed}}))
+        "plan_cache": cached, "distributed": distributed,
+        "apply_graph": apply_graph}}))
     mm18 = matmat["timed"][f"aniso{DEFL_NX} B=8 f64"]
     defl_configs = {f"{phase}_{c}": r for phase, recs in (
         ("driver", driver), ("suite", suite["auto"]))

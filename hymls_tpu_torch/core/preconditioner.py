@@ -17,8 +17,10 @@ Torch counterpart of hymls_tpu/core/preconditioner.py:
     gather-free structured apply of core/structured.py whenever its
     detection succeeds within the element budget; otherwise the
     generic apply: gathers + batched matvecs per level, the coarse
-    solve at the bottom.  `apply_bordered_fn` is the bordered V-cycle,
-    always on the generic plans.
+    solve at the bottom.  On CUDA tensors the apply of one factor tree
+    is captured once as a CUDA graph and replayed (core/apply_graph.py).
+    `apply_bordered_fn` is the bordered V-cycle, always on the generic
+    plans.
 
 Options, as in the reference: 'Number of Levels' = 0 eliminates the
 interiors and solves the full Schur complement densely (`DirectSCPlan`);
@@ -59,6 +61,7 @@ from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
 from ..ops.spmv import DiaOperator
 from ..utils.timings import count, prof
+from .apply_graph import ApplyGraphs
 from .structured import APPLY_LEVEL_SPANS
 from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
                     warm_inv as _warm_inv, warm_inv_chain as _warm_chain,
@@ -923,6 +926,7 @@ class Preconditioner:
         self.testvector = np.asarray(testvector, dtype=np.float64)
         self._factors = None
         self._border = None
+        self._graphs = ApplyGraphs()
         self.initialize()
 
     def _transform_bgrid(self, K: sp.csr_matrix) -> sp.csr_matrix:
@@ -1174,15 +1178,32 @@ class Preconditioner:
         `jax.vmap` of the apply), and T and T' as one multi-column DIA
         product each.  Inside the span `hymls.apply`, each level inside
         `hymls.apply.L<l>` and the coarse solve inside
-        `hymls.apply.coarse`."""
+        `hymls.apply.coarse`.
+
+        On a CUDA `b` the apply of a factor tree is captured once as a
+        CUDA graph and replayed (core/apply_graph.py): the same kernels,
+        one launch from the host; the level and coarse spans then
+        appear only at a capture.  `_apply_eager` is the apply without
+        the graph, what the CPU always runs."""
+        if b.device.type != "cuda":
+            return self._apply_eager(factors, aplans, b)
+        with prof("hymls.apply", 2):
+            return self._graphs(self._apply_body, factors, aplans, b)
+
+    def _apply_eager(self, factors, aplans, b):
+        """`apply_fn` op by op, counted in `hymls.apply.eager`."""
+        count("hymls.apply.eager")
+        with prof("hymls.apply", 2):
+            return self._apply_body(factors, aplans, b)
+
+    def _apply_body(self, factors, aplans, b):
         if self._structured_active:
             def apply(v):
                 return self._structured.apply(factors, v, aplans)
         else:
             def apply(v):
                 return self._apply_levels(factors, aplans, v)
-        with prof("hymls.apply", 2):
-            return apply(b) if self._bgrid is None else self._bgrid(apply, b)
+        return apply(b) if self._bgrid is None else self._bgrid(apply, b)
 
     def apply_generic(self, factors, dplans, b):
         """The generic gather V-cycle on a pruned generic factor tree
@@ -1255,6 +1276,7 @@ class Preconditioner:
 
     def _factorize(self, K, prev):
         count("hymls.compute.calls")
+        self._graphs.clear()
         with prof("hymls.compute", 1):
             if K is not None:
                 if self._bgrid_T is not None:
@@ -1283,6 +1305,7 @@ class Preconditioner:
         generic plans."""
         self._factors = None
         self._sfactors = None
+        self._graphs.clear()
         if V is None:
             self._border = None
             return self

@@ -266,6 +266,8 @@ def dia_matmat(bands: torch.Tensor, X: torch.Tensor,
     return dia_matmat_packed(bands, X, DiaOffsets(offsets))
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them): the
+#: wrapper's calls, so a CUDA graph's capture counts its launches once and
+#: its replays do not count them
 dia_matvec.launches = 0
 dia_matmat.launches = 0
