@@ -240,7 +240,11 @@ raises on failure (nonzero exit, no result line):
  28. the V-cycle apply replayed from its CUDA graph
      (core/apply_graph.py) against the eager apply, bit for bit:
      cavity128 on one level (an LU coarse), a B = 8 block, stokes2 128^2
-     on three levels, the 8^3 B-grid configuration (K1 inside the
+     on three levels, upstream's stokes2_3D at 32^3 on the generic
+     gather apply (the benchmark's stokes3d_32_L2, a 3528-unknown
+     coarse; its plans built cold into a fresh plan cache, then loaded,
+     each under the profiler: the `hymls.plan*` spans' seconds and the
+     plan counters), the 8^3 B-grid configuration (K1 inside the
      graph), capture on K_1 then compute(K_2), four recaptures of a
      Newton sequence (the memory reserved must not grow), a capture
      under torch.profiler and one that raises (eager, with a warning;
@@ -2415,6 +2419,43 @@ def drive_suite(device):
     return out
 
 
+def plan_layer_trace(K, params, tv, device):
+    """(record, P): an f32 Preconditioner of K built under
+    torch.profiler, with the seconds of each `hymls.plan*` span on the
+    profiler's clock, the constructor's wall seconds and the plan
+    counters it added (`hymls.plan.builds`, `.cache_loads`,
+    `.device_bytes`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from hymls_tpu_torch import Preconditioner
+    from hymls_tpu_torch.utils import timings
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    before = timings.counter_snapshot()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        P = Preconditioner(K, params, dtype=torch.float32, device=device,
+                           testvector=tv)
+        if cuda:
+            torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    now = timings.counter_snapshot()
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("hymls.plan"):
+            spans[e.name()] = spans.get(e.name(), 0.0) + \
+                e.duration_ns() * 1e-9
+    rec = {"setup_s": setup_s, "plan_s": P.plan_seconds,
+           "from_cache": P.plan_from_cache, "spans_s": spans,
+           "counters": {k: now.get("hymls.plan." + k, 0) -
+                        before.get("hymls.plan." + k, 0)
+                        for k in ("builds", "cache_loads", "device_bytes")}}
+    log(f"plan layer: constructor {setup_s:.2f} s ("
+        f"{'from the cache' if P.plan_from_cache else 'built'}); spans s "
+        f"{ {k: round(v, 3) for k, v in spans.items()} }; counters "
+        f"{rec['counters']}")
+    return rec, P
+
+
 def drive_apply_graph(device):
     """Phase 28: the V-cycle apply replayed from its CUDA graph
     (core/apply_graph.py) against the eager apply (`_apply_eager`), bit
@@ -2425,7 +2466,9 @@ def drive_apply_graph(device):
     K_2), a Newton sequence of recaptures (the memory reserved must not
     grow), a capture under torch.profiler and a capture that raises
     (eager, then a capture of another key again).  Host issue and CUDA
-    event time per apply of both, and each capture's ms."""
+    event time per apply of both, and each capture's ms (the first
+    apply: warm-up, capture and replay).  At 32^3 the plan build and
+    its store take ~25-35 s of the phase."""
     import warnings
     from hymls_tpu_torch import Preconditioner
     from hymls_tpu_torch.ops.dia_spmv import dia_matvec
@@ -2571,6 +2614,36 @@ def drive_apply_graph(device):
     if not P._structured_active:
         raise RuntimeError("stokes2 128^2 L3: not the structured apply")
     out["stokes2_128_L3"] = held("stokes2 128^2 L3", P, vec(K.shape[0]))
+    del P
+    # upstream's stokes2_3D at 32^3, two levels: the generic gather apply,
+    # its preconditioner built cold into a fresh plan cache and built
+    # again from it, each under the profiler (the plan layer's spans)
+    p = stokes_params(32, 3, 2, "Skew Cartesian", maxiter=160, tol=1e-8)
+    pre = p.sublist("Preconditioner")
+    pre["Coarsening Factor"] = 2
+    pre["Eliminate Velocities Together"] = False
+    K = create_matrix(p).tocsr()
+    with tempfile.TemporaryDirectory() as d, plan_cache(d):
+        cold, P = plan_layer_trace(K, p, create_testvector(p, K), device)
+        del P
+        cached, P = plan_layer_trace(K, p, create_testvector(p, K), device)
+        stored = [os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)]
+    plan = {"cold": cold, "cached": cached, "stored_bytes": stored}
+    if P._structured_active:
+        raise RuntimeError("stokes3d 32^3 L2: not the generic apply")
+    if cold["counters"]["builds"] != 1 or \
+            cached["counters"]["cache_loads"] != 1 or len(stored) != 1 or \
+            "hymls.plan.cache_store" not in cold["spans_s"] or \
+            "hymls.plan.build" in cached["spans_s"]:
+        raise RuntimeError(f"stokes3d 32^3 L2 plan layer: {plan}")
+    P.compute()
+    out["stokes3d_32_L2"] = rec = held("stokes3d 32^3 L2 generic", P,
+                                       vec(K.shape[0]))
+    rec.update(plan=plan, coarse_n=P.coarse_plan.n,
+               structured_reason=P._structured_reason)
+    log(f"apply graph stokes3d 32^3 L2: coarse {P.coarse_plan.n}, "
+        f"structured apply refused: {P._structured_reason}; plan file "
+        f"{stored} B")
     del P
     # the B-grid transform: K1 inside the graph
     p = stokes_l2_params(8, True)

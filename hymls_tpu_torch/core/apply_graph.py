@@ -24,12 +24,30 @@ capture in `hymls.apply.graph_captures`.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import warnings
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..utils.timings import count
+
+
+@contextlib.contextmanager
+def no_cyclic_gc():
+    """No cyclic garbage collection inside the block.  A collection
+    inside a capture can free another apply's graph, and destroying a
+    graph while a stream captures invalidates the capture (the apply
+    then runs eagerly); `torch.cuda.graph` collects before it captures
+    for the same reason, which would cost a capture per step far more."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 class CudaGraphs:
@@ -43,7 +61,8 @@ class CudaGraphs:
     factorization still running on the card instead of waiting for it
     and returning every cached block to the driver.  The captures are
     replayed one at a time on the caller's stream, so they can share
-    the pool's intermediate blocks."""
+    the pool's intermediate blocks.  No cyclic garbage collection runs
+    during a capture (`no_cyclic_gc`)."""
 
     def __init__(self):
         self.stream = None
@@ -70,7 +89,7 @@ class CudaGraphs:
         side = self._side_stream(device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.stream(side):
+            with no_cyclic_gc(), torch.cuda.stream(side):
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:

@@ -61,7 +61,7 @@ from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
 from ..ops.spmv import DiaOperator
 from ..utils.timings import count, prof
-from .apply_graph import ApplyGraphs
+from .apply_graph import ApplyGraphs, _tensors
 from .structured import APPLY_LEVEL_SPANS
 from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
                     warm_inv as _warm_inv, warm_inv_chain as _warm_chain,
@@ -938,7 +938,8 @@ class Preconditioner:
 
     # -- symbolic setup ----------------------------------------------------
     def initialize(self):
-        """Partition every level and build the static plans (host).
+        """Partition every level and build the static plans (host), then
+        move them to the device and pick the apply program.
 
         The plans depend only on the matrix pattern, the test vector and
         the grid and preconditioner configuration, never on the values,
@@ -947,22 +948,57 @@ class Preconditioner:
         of the plan-building sources, and later constructions load it
         (the reference's plan cache, hymls_tpu/core/preconditioner.py).
         `plan_from_cache` and `plan_seconds` say which happened and how
-        long it took."""
+        long it took.
+
+        Inside the span `hymls.plan`: the host plans' build inside
+        `hymls.plan.build`, the disk cache's load and store inside
+        `hymls.plan.cache_load` and `.cache_store`, the move to the
+        device inside `hymls.plan.device`.  Counts the construction in
+        `hymls.plan.builds` or `hymls.plan.cache_loads`, and the bytes
+        of the device plans in `hymls.plan.device_bytes`."""
+        with prof("hymls.plan", 1):
+            self.plans: List[LevelPlan] = []
+            self.hierarchies = []
+            self.coarse_plan: Optional[CoarsePlan] = None
+            self.direct_plan: Optional[DirectSCPlan] = None
+            self._level_parts: List[PartitionParams] = []
+            t0 = time.perf_counter()
+            key = cached = None
+            if self.max_level > 0:
+                with prof("hymls.plan.cache_load", 2):
+                    key = self._plan_cache_key()
+                    cached = _plan_cache_load(key)
+            if cached is not None:
+                (self.plans, self.hierarchies, self.coarse_plan,
+                 self._level_parts) = cached
+                count("hymls.plan.cache_loads")
+            else:
+                with prof("hymls.plan.build", 2):
+                    self._build_plans()
+                count("hymls.plan.builds")
+            self.plan_from_cache = cached is not None
+            self.plan_seconds = time.perf_counter() - t0
+            if cached is None and \
+                    self.plan_seconds > PLAN_CACHE_MIN_BUILD_S:
+                with prof("hymls.plan.cache_store", 2):
+                    _plan_cache_store(key, (self.plans, self.hierarchies,
+                                            self.coarse_plan,
+                                            self._level_parts))
+            with prof("hymls.plan.device", 2):
+                self._build_device_plans()
+            self._init_structured()
+        return self
+
+    def _build_plans(self):
+        """Partition every level and build its plan, then the coarse
+        plan; at 'Number of Levels' 0 the elimination plan and the
+        direct Schur plan."""
         g = self.grid
         part = PartitionParams.from_params(self.params, g, level=0)
         pattern = self.K.copy()
         pattern.data = np.arange(pattern.nnz, dtype=np.int64)
         nodes = np.arange(g.num_nodes, dtype=np.int64)
         tv = self.testvector.copy()
-
-        self.plans: List[LevelPlan] = []
-        self.hierarchies = []
-        self.coarse_plan: Optional[CoarsePlan] = None
-        self.direct_plan: Optional[DirectSCPlan] = None
-        self._level_parts: List[PartitionParams] = []
-        t0 = time.perf_counter()
-        key = None
-        cached = None
         if self.max_level == 0:
             # the level-plan machinery for the elimination part, the
             # dense assembly maps for the rest
@@ -975,13 +1011,8 @@ class Preconditioner:
             self.direct_plan = build_direct_plan(
                 self.K, plan, np.unique(hier.all_separator_nodes()),
                 self.fix_gids)
-        else:
-            key = self._plan_cache_key()
-            cached = _plan_cache_load(key)
-        if cached is not None:
-            (self.plans, self.hierarchies, self.coarse_plan,
-             self._level_parts) = cached
-        for lev in range(self.max_level if cached is None else 0):
+            return
+        for lev in range(self.max_level):
             if lev > 0:
                 # re-resolve per-level parameters and keep the
                 # geometric separator-length evolution
@@ -1001,17 +1032,7 @@ class Preconditioner:
             self.hierarchies.append(hier)
             nodes = plan.next_nodes
             pattern = plan.next_pattern
-        if self.max_level > 0 and cached is None:
-            self.coarse_plan = build_coarse_plan(pattern, nodes,
-                                                 self.fix_gids)
-        self.plan_from_cache = cached is not None
-        self.plan_seconds = time.perf_counter() - t0
-        if cached is None and self.plan_seconds > PLAN_CACHE_MIN_BUILD_S:
-            _plan_cache_store(key, (self.plans, self.hierarchies,
-                                    self.coarse_plan, self._level_parts))
-        self._build_device_plans()
-        self._init_structured()
-        return self
+        self.coarse_plan = build_coarse_plan(pattern, nodes, self.fix_gids)
 
     def _plan_cache_key(self) -> Optional[str]:
         """Hash of everything the plan build reads; None when the cache
@@ -1041,7 +1062,9 @@ class Preconditioner:
         """The plans as tensors: `_dplans` for the factorization (float
         fields in the factor dtype), `_aplans_gen`, the subset the
         generic apply reads (float fields in the apply dtype), and
-        `_extra_plan`, the coarse plan or at L = 0 the direct plan."""
+        `_extra_plan`, the coarse plan or at L = 0 the direct plan.
+        Their bytes, each tensor once, go to the counter
+        `hymls.plan.device_bytes`."""
         self._dplans = [
             _device_level(p, self.factor_dtype, self.device,
                           split_maps=self._split_assembly and
@@ -1064,6 +1087,10 @@ class Preconditioner:
                 for f in DIRECT_FIELDS}
         self._extra_plan = self._ddirect if self.max_level == 0 \
             else self._dcoarse
+        tensors = {id(t): t for t in _tensors(
+            (self._dplans, self._aplans_gen, self._extra_plan), [])}
+        count("hymls.plan.device_bytes",
+              sum(t.numel() * t.element_size() for t in tensors.values()))
 
     def _init_structured(self):
         """Build the gather-free structured apply (core/structured.py),
@@ -1184,7 +1211,11 @@ class Preconditioner:
         CUDA graph and replayed (core/apply_graph.py): the same kernels,
         one launch from the host; the level and coarse spans then
         appear only at a capture.  `_apply_eager` is the apply without
-        the graph, what the CPU always runs."""
+        the graph, what the CPU always runs.  Counts the call in
+        `hymls.apply.structured` or `hymls.apply.generic`, by the program
+        it runs."""
+        count("hymls.apply.structured" if self._structured_active
+              else "hymls.apply.generic")
         if b.device.type != "cuda":
             return self._apply_eager(factors, aplans, b)
         with prof("hymls.apply", 2):

@@ -5,6 +5,7 @@ it in `hymls.apply.eager`; no graph code runs.  The cache's keying and
 invalidation are held here with a stand-in for the CUDA capture backend:
 a "graph" is the captured function, and a replay runs it again into the
 static output, as a CUDA graph writes its static output in place."""
+import contextlib
 import gc
 import weakref
 from collections import defaultdict
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from hymls_tpu_torch import Params, Preconditioner
-from hymls_tpu_torch.core.apply_graph import ApplyGraphs
+from hymls_tpu_torch.core.apply_graph import ApplyGraphs, CudaGraphs
 from hymls_tpu_torch.stencils import create_matrix, create_testvector
 from hymls_tpu_torch.utils import timings
 
@@ -126,7 +127,9 @@ def test_cpu_apply_is_eager_and_counted(built, counters, monkeypatch):
     x = P.apply_fn(P.apply_factors, P._aplans, b)
     B = P.apply_fn(P.apply_factors, P._aplans, vectors(K.shape[0], 3))
     assert x.shape == b.shape and B.shape == (3, K.shape[0])
-    assert dict(counters) == {"hymls.apply.eager": 2}
+    program = "structured" if P._structured is not None else "generic"
+    assert dict(counters) == {"hymls.apply.eager": 2,
+                              "hymls.apply." + program: 2}
     assert torch.equal(x, P.apply_inverse(b))
     assert P._graphs._tree is None and not P._graphs._graphs
 
@@ -274,3 +277,39 @@ def test_apply_graph_share_reads_the_program_counters(monkeypatch):
     # a program without counters reads nothing, and does not raise
     monkeypatch.delattr(timings, "counter_snapshot")
     assert read(None) is None
+
+
+def test_no_cyclic_gc_during_a_capture(monkeypatch):
+    """A cyclic collection inside a capture can free another apply's
+    graph, and destroying a graph while a stream captures invalidates
+    the capture: the CUDA backend captures with the collector off and
+    turns it back on after, also when the capture raises.  The CUDA
+    calls are stand-ins here."""
+    class Graph:
+        def capture_begin(self, **kw):
+            pass
+
+        def capture_end(self):
+            pass
+    for name, fake in (("CUDAGraph", Graph),
+                       ("Stream", lambda device: object()),
+                       ("graph_pool_handle", lambda: None),
+                       ("stream", lambda s: contextlib.nullcontext())):
+        monkeypatch.setattr(torch.cuda, name, fake)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        return 7
+    assert gc.isenabled()
+    graph, out = CudaGraphs().capture(body, "cuda")
+    assert isinstance(graph, Graph) and out == 7
+    assert seen == [False] and gc.isenabled()
+
+    def raising():
+        seen.append(gc.isenabled())
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+    with pytest.raises(RuntimeError):
+        CudaGraphs().capture(raising, "cuda")
+    assert seen == [False, False] and gc.isenabled()
