@@ -239,8 +239,8 @@ raises on failure (nonzero exit, no result line):
      solve s beside the structured run's;
  28. the V-cycle apply replayed from its CUDA graph
      (core/apply_graph.py) against the eager apply, bit for bit:
-     cavity128 on one level (an LU coarse), a B = 8 block, stokes2 128^2
-     on three levels, upstream's stokes2_3D at 32^3 on the generic
+     cavity128 on one level (a coarse inverse), a B = 8 block, stokes2
+     128^2 on three levels, upstream's stokes2_3D at 32^3 on the generic
      gather apply (the benchmark's stokes3d_32_L2, a 3528-unknown
      coarse; its plans built cold into a fresh plan cache, then loaded,
      each under the profiler: the `hymls.plan*` spans' seconds and the
@@ -250,7 +250,19 @@ raises on failure (nonzero exit, no result line):
      under torch.profiler and one that raises (eager, with a warning;
      the next capture works); host issue and CUDA-event time per apply
      of both.  Every apply_fn on the card before it replays too; phase
-     15 counts K1 launches per apply on the eager apply.
+     15 counts K1 launches per apply on the eager apply;
+ 29. the large coarse system held as its explicit inverse on the card
+     (dense_factor's branch off the CPU) against LU factors (the CPU's
+     branch above 2048 unknowns, forced here): cavity128 on one level
+     (a 7875-unknown coarse) and upstream's stokes2_3D at 32^3 (3528),
+     the branches in turns (LU, inverse, inverse, LU): the cold coarse
+     factor by CUDA events, max|I - A X| of the inverse, the replayed
+     apply bit for bit the eager one and its time per apply; then
+     cavity128's Newton sequence on each branch, interleaved: compute()
+     against recompute() (warm_inv on the coarse inverse: polished from
+     the last one where its gate passes; LU refactored cold) and
+     newton_step against newton_step_warm, with inner iterations and
+     true f64 relres.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
@@ -1275,17 +1287,24 @@ def time_paths(solvers, b, rounds: int = 3):
     return out
 
 
-def coarse_inverse_residual(S):
-    """max|I - A X| of the f32 coarse inverse, computed in f64."""
+def coarse_matrix(P):
+    """The dense coarse matrix of `P`'s current values, assembled as its
+    factorization assembles it (in the factor dtype, every level's
+    orthogonal transform as its plan says)."""
     from hymls_tpu_torch.core.preconditioner import (_compute_level,
                                                      _coarse_matrix)
-    P = S.precond
-    v = torch.as_tensor(P.K.data, dtype=torch.float32, device=P.device)
-    for dp in P._dplans:
-        _, v = _compute_level(v, dp)
+    v = torch.as_tensor(P.K.data, dtype=P.factor_dtype, device=P.device)
+    for dp, plan in zip(P._dplans, P.plans):
+        _, v = _compute_level(v, dp, apply_ot=plan.apply_ot)
     dc = P._dcoarse
-    A = _coarse_matrix(v, dc["rows"], dc["cols"], dc["diag_entry"],
-                       dc["fix_rows"], P.coarse_plan.n)
+    return _coarse_matrix(v, dc["rows"], dc["cols"], dc["diag_entry"],
+                          dc["fix_rows"], P.coarse_plan.n)
+
+
+def coarse_inverse_residual(P):
+    """max|I - A X| of the coarse inverse of preconditioner `P`,
+    computed in f64."""
+    A = coarse_matrix(P)
     X = P.factors["coarse"]["inv"]
     eye = torch.eye(A.shape[0], dtype=torch.float64, device=A.device)
     return tuple(A.shape), float((eye - A.double() @ X.double()).abs().max())
@@ -2456,12 +2475,61 @@ def plan_layer_trace(K, params, tv, device):
     return rec, P
 
 
+def apply_counters(before):
+    """The apply-graph counters since the snapshot `before`."""
+    from hymls_tpu_torch.utils import timings
+    now = timings.counter_snapshot()
+    return {k[len("hymls.apply."):]: now.get(k, 0) - before.get(k, 0)
+            for k in ("hymls.apply.graph_captures",
+                      "hymls.apply.graph_replays", "hymls.apply.eager")}
+
+
+def held_apply(tag, P, b, captures=1):
+    """The replayed apply of `P` on `b` against its eager apply, bit for
+    bit, with its counters; host issue and CUDA-event time per apply of
+    both, and the first apply's ms (warm-up, capture and replay)."""
+    from hymls_tpu_torch.utils import timings
+    f, a = P.apply_factors, P._aplans
+    before = timings.counter_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x1 = P.apply_fn(f, a, b)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    x2 = P.apply_fn(f, a, b)
+    e = P._apply_eager(f, a, b)
+    c = apply_counters(before)
+    if not (torch.equal(x1, e) and torch.equal(x2, e)):
+        raise RuntimeError(f"{tag}: the replayed apply differs from the "
+                           f"eager one by "
+                           f"{float((x2 - e).abs().max()):.3e}")
+    if c != {"graph_captures": captures, "graph_replays": 2,
+             "eager": 1}:
+        raise RuntimeError(f"{tag}: counters {c}")
+    rec = {"n": b.shape[-1], "shape": list(b.shape),
+           "first_apply_ms": first_ms,
+           "issue_us": issue_us(lambda: P.apply_fn(f, a, b)),
+           "eager_issue_us": issue_us(lambda: P._apply_eager(f, a, b)),
+           "event_us": 1e3 * event_ms(lambda: P.apply_fn(f, a, b),
+                                      reps=10, inner=10, warmup=2),
+           "eager_event_us": 1e3 * event_ms(
+               lambda: P._apply_eager(f, a, b), reps=10, inner=10,
+               warmup=2)}
+    log(f"apply graph {tag}: {list(b.shape)} {b.dtype}, equal to the "
+        f"eager apply bit for bit; first apply (warm-up, capture, "
+        f"replay) {first_ms:.2f} ms; host issue {rec['issue_us']:.1f} "
+        f"us, eager {rec['eager_issue_us']:.1f}; per apply (CUDA "
+        f"events) {rec['event_us']:.1f} us, eager "
+        f"{rec['eager_event_us']:.1f}")
+    return rec
+
+
 def drive_apply_graph(device):
     """Phase 28: the V-cycle apply replayed from its CUDA graph
     (core/apply_graph.py) against the eager apply (`_apply_eager`), bit
-    for bit: cavity128 on one level (an LU coarse of more than 2048
-    unknowns), a B = 8 block, stokes2 128^2 on three levels, the 8^3
-    B-grid configuration (K1 inside the graph), the stale factor
+    for bit: cavity128 on one level (the inverse of a coarse of more
+    than 2048 unknowns), a B = 8 block, stokes2 128^2 on three levels,
+    the 8^3 B-grid configuration (K1 inside the graph), the stale factor
     (capture on K_1, compute(K_2), the apply equal to the eager one on
     K_2), a Newton sequence of recaptures (the memory reserved must not
     grow), a capture under torch.profiler and a capture that raises
@@ -2476,47 +2544,6 @@ def drive_apply_graph(device):
     from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
     from hymls_tpu_torch.utils import timings
 
-    def counters(before):
-        now = timings.counter_snapshot()
-        return {k[len("hymls.apply."):]: now.get(k, 0) - before.get(k, 0)
-                for k in ("hymls.apply.graph_captures",
-                          "hymls.apply.graph_replays", "hymls.apply.eager")}
-
-    def held(tag, P, b, captures=1):
-        f, a = P.apply_factors, P._aplans
-        before = timings.counter_snapshot()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x1 = P.apply_fn(f, a, b)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        x2 = P.apply_fn(f, a, b)
-        e = P._apply_eager(f, a, b)
-        c = counters(before)
-        if not (torch.equal(x1, e) and torch.equal(x2, e)):
-            raise RuntimeError(f"{tag}: the replayed apply differs from the "
-                               f"eager one by "
-                               f"{float((x2 - e).abs().max()):.3e}")
-        if c != {"graph_captures": captures, "graph_replays": 2,
-                 "eager": 1}:
-            raise RuntimeError(f"{tag}: counters {c}")
-        rec = {"n": b.shape[-1], "shape": list(b.shape),
-               "first_apply_ms": first_ms,
-               "issue_us": issue_us(lambda: P.apply_fn(f, a, b)),
-               "eager_issue_us": issue_us(lambda: P._apply_eager(f, a, b)),
-               "event_us": 1e3 * event_ms(lambda: P.apply_fn(f, a, b),
-                                          reps=10, inner=10, warmup=2),
-               "eager_event_us": 1e3 * event_ms(
-                   lambda: P._apply_eager(f, a, b), reps=10, inner=10,
-                   warmup=2)}
-        log(f"apply graph {tag}: {list(b.shape)} {b.dtype}, equal to the "
-            f"eager apply bit for bit; first apply (warm-up, capture, "
-            f"replay) {first_ms:.2f} ms; host issue {rec['issue_us']:.1f} "
-            f"us, eager {rec['eager_issue_us']:.1f}; per apply (CUDA "
-            f"events) {rec['event_us']:.1f} us, eager "
-            f"{rec['eager_event_us']:.1f}")
-        return rec
-
     def f32(K, params):
         P = Preconditioner(K, params, dtype=torch.float32, device=device,
                            testvector=create_testvector(params, K))
@@ -2529,21 +2556,21 @@ def drive_apply_graph(device):
 
     t_start = time.perf_counter()
     out = {}
-    # cavity128, one level: the LU coarse
+    # cavity128, one level: the large coarse held as its inverse
     p = cavity64_params()
     p.sublist("Problem")["nx"] = p.sublist("Problem")["ny"] = 128
     K = cavity_jacobian(128, 128, re=1000.0).tocsr()
     P = f32(K, p)
-    if "lu" not in P.apply_factors["coarse"]:
-        raise RuntimeError("cavity128: the coarse solve is not the LU one")
+    if set(P.apply_factors["coarse"]) != {"inv"}:
+        raise RuntimeError("cavity128: the coarse solve is not the inverse")
     n = K.shape[0]
     b = vec(n)
-    out["cavity128"] = held("cavity128", P, b)
-    out["cavity128_B8"] = held("cavity128 B=8", P, vec(n, 8, seed=1))
+    out["cavity128"] = held_apply("cavity128", P, b)
+    out["cavity128_B8"] = held_apply("cavity128 B=8", P, vec(n, 8, seed=1))
     # the stale factor: capture on K_1, compute(K_2)
     x_k1 = P.apply_fn(P.apply_factors, P._aplans, b)
     P.compute(cavity_jacobian(128, 128, re=950.0).tocsr())
-    out["cavity128_stale"] = held("cavity128 after compute(K_2)", P, b)
+    out["cavity128_stale"] = held_apply("cavity128 after compute(K_2)", P, b)
     if torch.equal(x_k1, P._apply_eager(P.apply_factors, P._aplans, b)):
         raise RuntimeError("compute(K_2) left the apply unchanged")
     # a Newton sequence: compute, capture, replays; nothing may pile up
@@ -2567,7 +2594,7 @@ def drive_apply_graph(device):
         f"less a replay) {[round(c, 2) for c in capture_ms]}; memory "
         f"reserved {reserved} B; peak allocated "
         f"{torch.cuda.max_memory_allocated()} B")
-    c = counters(before)
+    c = apply_counters(before)
     if reserved[-1] > reserved[1] or c != {
             "graph_captures": 4, "graph_replays": 8, "eager": 0}:
         raise RuntimeError(f"the recaptures: counters {c}, memory reserved "
@@ -2580,7 +2607,7 @@ def drive_apply_graph(device):
         xs = [P.apply_fn(P.apply_factors, P._aplans, b) for _ in range(3)]
         torch.cuda.synchronize()
     e = P._apply_eager(P.apply_factors, P._aplans, b)
-    c = counters(before)
+    c = apply_counters(before)
     if not all(torch.equal(x, e) for x in xs) or c["graph_captures"] != 1:
         raise RuntimeError(f"cavity128 under the profiler: counters {c}, "
                            f"equal {[torch.equal(x, e) for x in xs]}")
@@ -2598,13 +2625,13 @@ def drive_apply_graph(device):
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         y = P._graphs(syncing, f, a, b2)
-    c = counters(before)
+    c = apply_counters(before)
     if not torch.equal(y, P._apply_eager(f, a, b2)) or c != {
             "graph_captures": 0, "graph_replays": 0, "eager": 1} or \
             not any("could not be captured" in str(m.message) for m in w):
         raise RuntimeError(f"a capture that raises: counters {c}, "
                            f"{[str(m.message) for m in w]}")
-    out["cavity128_after_failed_capture"] = held(
+    out["cavity128_after_failed_capture"] = held_apply(
         "cavity128 B=3 after a failed capture", P, vec(n, 3, seed=3))
     del P
     # stokes2 128^2, three levels
@@ -2613,7 +2640,7 @@ def drive_apply_graph(device):
     P = f32(K, p)
     if not P._structured_active:
         raise RuntimeError("stokes2 128^2 L3: not the structured apply")
-    out["stokes2_128_L3"] = held("stokes2 128^2 L3", P, vec(K.shape[0]))
+    out["stokes2_128_L3"] = held_apply("stokes2 128^2 L3", P, vec(K.shape[0]))
     del P
     # upstream's stokes2_3D at 32^3, two levels: the generic gather apply,
     # its preconditioner built cold into a fresh plan cache and built
@@ -2637,7 +2664,7 @@ def drive_apply_graph(device):
             "hymls.plan.build" in cached["spans_s"]:
         raise RuntimeError(f"stokes3d 32^3 L2 plan layer: {plan}")
     P.compute()
-    out["stokes3d_32_L2"] = rec = held("stokes3d 32^3 L2 generic", P,
+    out["stokes3d_32_L2"] = rec = held_apply("stokes3d 32^3 L2 generic", P,
                                        vec(K.shape[0]))
     rec.update(plan=plan, coarse_n=P.coarse_plan.n,
                structured_reason=P._structured_reason)
@@ -2650,13 +2677,171 @@ def drive_apply_graph(device):
     K = create_matrix(p).tocsr()
     P = f32(K, p)
     reset_counts()
-    out["stokes_L2_8_bgrid"] = rec = held("stokes_L2 8^3 B-grid", P,
+    out["stokes_L2_8_bgrid"] = rec = held_apply("stokes_L2 8^3 B-grid", P,
                                           vec(K.shape[0]))
     rec["dia_spmv_wrapper_calls"] = dia_matvec.launches
     if P._bgrid is None or dia_matvec.launches < 4:
         raise RuntimeError(f"B-grid: {dia_matvec.launches} K1 wrapper calls")
     out["seconds"] = time.perf_counter() - t_start
     log(f"phase 28 in {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def coarse_branch(kind):
+    """`dense_factor` on the card as it is ("inv": the explicit inverse
+    at every size) or with the CPU's branch forced ("lu": LU factors
+    above 2048 unknowns)."""
+    from hymls_tpu_torch.core import dense
+    orig = dense.on_accelerator
+    if kind == "lu":
+        dense.on_accelerator = lambda A: False
+    try:
+        yield
+    finally:
+        dense.on_accelerator = orig
+
+
+#: the coarse factor's keys on each branch
+COARSE_KEYS = {"lu": {"lu", "piv"}, "inv": {"inv"}}
+
+
+def coarse_branches(tag, P, b):
+    """Phase 29 for one preconditioner: per branch, in turns (LU,
+    inverse, inverse, LU), the cold factor of the coarse matrix by CUDA
+    events, then compute() and the replayed apply against the eager
+    one (`held_apply`); max|I - A X| of the inverse."""
+    from hymls_tpu_torch.core import dense
+    A = coarse_matrix(P)
+    out = {"n": A.shape[0], "dtype": str(A.dtype), "lu": [], "inv": []}
+    for kind in ("lu", "inv", "inv", "lu"):
+        with coarse_branch(kind):
+            ms = event_ms(lambda: dense.dense_factor(A), reps=3, inner=1,
+                          warmup=1)
+            P.compute()
+            if set(P.factors["coarse"]) != COARSE_KEYS[kind]:
+                raise RuntimeError(f"{tag}: coarse factor "
+                                   f"{sorted(P.factors['coarse'])} on the "
+                                   f"{kind} branch")
+            rec = held_apply(f"{tag} coarse {kind}", P, b)
+        rec["factor_ms"] = ms
+        out[kind].append(rec)
+        log(f"coarse {tag} {kind}: n = {A.shape[0]} {A.dtype}, cold coarse "
+            f"factor {ms:.2f} ms (CUDA events, median of 3); replayed "
+            f"apply {rec['event_us']:.1f} us")
+        if kind == "inv" and "inv_residual" not in out:
+            out["inv_residual"] = coarse_inverse_residual(P)[1]
+            log(f"coarse {tag} inverse: max|I - A X| = "
+                f"{out['inv_residual']:.3e} (f64)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def coarse_warm_times(solvers, K, b, rounds: int = 3):
+    """Phase 29's Newton sequence on cavity128: each branch's solver in
+    turns (LU, inverse, inverse, LU per round), on values scaled anew per
+    call: compute() against recompute(), newton_step against
+    newton_step_warm threading each branch's factors, with their inner
+    iterations and the warm step's true f64 relres."""
+    order = ("lu", "inv", "inv", "lu")
+    samples = {t: {"compute": [], "recompute": [], "cold_step": [],
+                   "warm_step": []} for t in solvers}
+    iters = {t: {"cold": [], "warm": []} for t in solvers}
+    facs = {t: solvers[t].precond.factors for t in solvers}
+    worst = 0.0
+    j = 0
+    for _ in range(rounds):
+        for kind in order:
+            S = solvers[kind]
+            P = S.precond
+            s_ = samples[kind]
+            j += 1
+            s = 1.0 + 1e-6 * j
+            with coarse_branch(kind):
+                s_["compute"].append(wall_median(
+                    lambda: P.compute(scaled(K, s)), 1)[0])
+                s_["recompute"].append(wall_median(
+                    lambda: P.recompute(scaled(K, s + 5e-7)), 1)[0])
+                v64, v32 = S.op64.vals * s, S.solver.op.vals * s
+                t, r = wall_median(lambda: S.newton_step(v64, v32, b), 1)
+                s_["cold_step"].append(t)
+                iters[kind]["cold"].append(r.iters)
+                t, (r, facs[kind]) = wall_median(
+                    lambda: S.newton_step_warm(v64, v32, b, facs[kind]), 1)
+                s_["warm_step"].append(t)
+                iters[kind]["warm"].append(r.iters)
+                if set(facs[kind]["coarse"]) != COARSE_KEYS[kind]:
+                    raise RuntimeError(f"warm {kind}: coarse factor "
+                                       f"{sorted(facs[kind]['coarse'])}")
+            relres = true_relres(scaled(K, s), r.x, b)
+            worst = max(worst, relres)
+            if not relres <= RELRES_OK:
+                raise RuntimeError(f"cavity128 warm step on the {kind} "
+                                   f"branch: relres {relres:.3e}")
+    out = {"worst_relres": worst}
+    for kind in solvers:
+        med = {k: statistics.median(x) for k, x in samples[kind].items()}
+        out[kind] = {**{f"{k}_s": v for k, v in med.items()},
+                     "iters": iters[kind]}
+        log(f"coarse cavity128 {kind} Newton sequence: compute "
+            f"{med['compute']:.4f} s, recompute {med['recompute']:.4f} s; "
+            f"newton_step {med['cold_step']:.4f} s, newton_step_warm "
+            f"{med['warm_step']:.4f} s (median of {2 * rounds}, "
+            f"interleaved, wall clock); inner iterations cold "
+            f"{iters[kind]['cold']}, warm {iters[kind]['warm']}")
+    log(f"coarse cavity128 Newton sequence: worst true f64 relres of a "
+        f"warm step {worst:.3e}")
+    return out
+
+
+def drive_coarse_inverse(device):
+    """Phase 29: the large coarse system held as its explicit inverse on
+    the card against LU factors, the CPU's branch forced
+    (`coarse_branch`): cavity128 on one level and upstream's stokes2_3D
+    at 32^3 on two (`coarse_branches`), then cavity128's Newton
+    sequence on each branch (`coarse_warm_times`).  The 32^3 plan build
+    takes ~25 s of the phase."""
+    from hymls_tpu_torch import Preconditioner
+    from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    from hymls_tpu_torch.stencils import create_matrix, create_testvector
+    from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+    def vec(n):
+        return torch.randn(n, dtype=torch.float32, device=device,
+                           generator=torch.Generator(device).manual_seed(0))
+
+    t_start = time.perf_counter()
+    out = {}
+    p = cavity64_params()
+    p.sublist("Problem")["nx"] = p.sublist("Problem")["ny"] = 128
+    K = cavity_jacobian(128, 128, re=1000.0).tocsr()
+    P = Preconditioner(K, p, dtype=torch.float32, device=device,
+                       testvector=create_testvector(p, K))
+    out["cavity128"] = coarse_branches("cavity128", P, vec(K.shape[0]))
+    del P
+    p3 = stokes_params(32, 3, 2, "Skew Cartesian", maxiter=160, tol=1e-8)
+    pre = p3.sublist("Preconditioner")
+    pre["Coarsening Factor"] = 2
+    pre["Eliminate Velocities Together"] = False
+    K3 = create_matrix(p3).tocsr()
+    P = Preconditioner(K3, p3, dtype=torch.float32, device=device,
+                       testvector=create_testvector(p3, K3))
+    out["stokes3d_32_L2"] = coarse_branches("stokes3d 32^3 L2", P,
+                                            vec(K3.shape[0]))
+    del P, K3
+    b = K @ np.random.default_rng(0).standard_normal(K.shape[0])
+    solvers = {}
+    for kind in ("lu", "inv"):
+        with coarse_branch(kind):
+            S = IterativeRefinementSolver(
+                K, p, testvector=create_testvector(p, K), device=device)
+            S.compute()
+        solvers[kind] = S
+    out["warm"] = coarse_warm_times(solvers, K, b)
+    del solvers, S
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 29 in {out['seconds']:.1f} s")
     return out
 
 
@@ -3085,7 +3270,7 @@ def main(argv=None) -> int:
 
     # -- 5. main path: structured apply ("Auto") -----------------------------
     K, b, S, launches = check_main_path(device, "Auto", "structured")
-    shape, cres = coarse_inverse_residual(S)
+    shape, cres = coarse_inverse_residual(S.precond)
     log(f"coarse f32{list(shape)} inverse: max|I - A X| = {cres:.3e}")
 
     # -- 6. generic apply -------------------------------------------------------
@@ -3186,6 +3371,9 @@ def main(argv=None) -> int:
     # -- 28. the apply replayed from its CUDA graph --------------------------
     apply_graph = drive_apply_graph(device)
 
+    # -- 29. the large coarse system as its inverse against LU ---------------
+    coarse = drive_coarse_inverse(device)
+
     # the card again: a tool that keeps only the end of the output keeps it
     log(f"total {time.perf_counter() - t_start:.1f} s on "
         f"{gpu_name_and_power()}")
@@ -3208,7 +3396,7 @@ def main(argv=None) -> int:
         "bordered_deflated": bordered_deflated, "complex": cplx,
         "eigen": eigen, "driver": driver, "bridge": bridge,
         "plan_cache": cached, "distributed": distributed,
-        "apply_graph": apply_graph}}))
+        "apply_graph": apply_graph, "coarse_inverse": coarse}}))
     mm18 = matmat["timed"][f"aniso{DEFL_NX} B=8 f64"]
     defl_configs = {f"{phase}_{c}": r for phase, recs in (
         ("driver", driver), ("suite", suite["auto"]))

@@ -1,11 +1,12 @@
 """Dense inverses and the single large dense factorization.
 
-Torch counterpart of hymls_tpu/core/dense.py on the branches its CPU
-runs take (`on_accelerator()` is false there): library inverses
+Torch counterpart of hymls_tpu/core/dense.py: library inverses
 (`torch.linalg.inv`, LAPACK on the CPU and cuSOLVER on the card) with
-a residual-adaptive Newton polish in f64, the warm-started inverse of
-value-only recomputes, and an LU factorization for the coarse system
-above 2048 unknowns.  The TPU workarounds of the
+a residual-adaptive Newton polish in f64, and the warm-started inverse
+of value-only recomputes.  The coarse system takes the reference's two
+branches by where it lives: off the CPU its explicit inverse at every
+size, applied as one matrix-vector product; on the CPU the inverse up
+to 2048 unknowns and LU factors above.  The TPU workarounds of the
 reference (one-hot Gauss-Jordan, the Newton-Schulz-polished seed for
 the coarse inverse, chunked batches) are not ported: the card has
 native f32 and f64 LU.
@@ -14,9 +15,18 @@ from __future__ import annotations
 
 import torch
 
-# below this size the explicit inverse is cheap; above it the coarse
-# system keeps its LU factors (hymls_tpu/core/dense.py:_LU_THRESHOLD)
+from ..utils.timings import count
+
+# on the CPU, below this size the explicit inverse is cheap; above it
+# the coarse system keeps its LU factors
+# (hymls_tpu/core/dense.py:_LU_THRESHOLD)
 _LU_THRESHOLD = 2048
+
+
+def on_accelerator(A) -> bool:
+    """Whether `A` lives off the CPU: the counterpart of the
+    reference's `on_accelerator()`."""
+    return A.device.type != "cpu"
 
 
 def _matmul(A, B):
@@ -118,11 +128,15 @@ def warm_inv_chain(A, X0):
 
 
 def dense_factor(A) -> dict:
-    """Factor one (unbatched) dense system for repeated solves: the
-    inverse up to 2048 unknowns, LU factors above."""
+    """Factor one (unbatched) dense system for repeated solves: off the
+    CPU the inverse at every size, on the CPU the inverse up to 2048
+    unknowns and LU factors above.  Counts each factor in
+    `hymls.coarse.inverse` or `hymls.coarse.lu`."""
     n = A.shape[-1]
-    if n <= _LU_THRESHOLD or A.dim() != 2:
+    if on_accelerator(A) or n <= _LU_THRESHOLD or A.dim() != 2:
+        count("hymls.coarse.inverse")
         return {"inv": inv_newton(A)}
+    count("hymls.coarse.lu")
     lu, piv = torch.linalg.lu_factor(A)
     return {"lu": lu, "piv": piv}
 

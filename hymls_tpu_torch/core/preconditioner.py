@@ -387,8 +387,8 @@ def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n,
     RelFullDiag drop + PutDirichlet + direct LU).  Under factor upcast
     the matrix is assembled and dropped in f64 and inverted in
     `store_dtype`.  With `prev` (warm recompute) an explicit inverse is
-    polished from the previous one; LU factors (above 2048 unknowns)
-    are recomputed cold."""
+    polished from the previous one; LU factors (on the CPU, above 2048
+    unknowns) are recomputed cold."""
     A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
     if store_dtype is not None:
         A = A.to(store_dtype)

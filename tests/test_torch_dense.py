@@ -1,7 +1,8 @@
 """The port's dense inverses and coarse factorization against
 hymls_tpu.core.dense on the CPU (where both take library LU inverses,
-polished by Newton steps in f64).  Tolerances: 1e-10 relative in f64,
-1e-5 in f32 on well-conditioned inputs."""
+polished by Newton steps in f64), and the coarse factor's branch off the
+CPU against the reference's accelerator branch.  Tolerances: 1e-10
+relative in f64, 1e-5 in f32 on well-conditioned inputs."""
 import numpy as np
 import pytest
 
@@ -10,6 +11,7 @@ import torch
 
 from hymls_tpu.core import dense as jdense
 from hymls_tpu_torch.core import dense as tdense
+from hymls_tpu_torch.utils import timings
 
 
 def _spd_with_cond(n, cond, rng, batch=None):
@@ -80,6 +82,55 @@ def test_dense_factor_and_solve(n):
     Y = tdense.dense_solve(ft, torch.as_tensor(rhs[:, None].repeat(2, 1)))
     assert tuple(Y.shape) == (n, 2)
     assert _rel(yt, Y[:, 1].numpy()) <= 1e-12
+
+
+def test_dense_factor_off_the_cpu_is_the_inverse():
+    """A tensor off the CPU takes the inverse at every size: a 4096 x
+    4096 system on the "meta" device (shapes only) gets no LU."""
+    A = torch.empty(4096, 4096, dtype=torch.float32, device="meta")
+    assert tdense.on_accelerator(A)
+    assert not tdense.on_accelerator(torch.zeros(2, 2))
+    fac = tdense.dense_factor(A)
+    assert set(fac) == {"inv"}
+    assert fac["inv"].shape == A.shape and fac["inv"].device.type == "meta"
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_dense_factor_accelerator_branch(dtype, monkeypatch):
+    """Above 2048 unknowns the port's branch off the CPU (its predicate
+    forced here) agrees with the reference's accelerator branch
+    (`on_accelerator` forced true): an inverse, and its solve."""
+    n = 2049
+    rng = np.random.default_rng(n)
+    A = (rng.standard_normal((n, n)) + n * np.eye(n)).astype(dtype)
+    rhs = rng.standard_normal(n).astype(dtype)
+    monkeypatch.setattr(jdense, "on_accelerator", lambda: True)
+    monkeypatch.setattr(tdense, "on_accelerator", lambda A: True)
+    fj = jdense.dense_factor(jnp.asarray(A))
+    ft = tdense.dense_factor(torch.as_tensor(A))
+    assert set(ft) == set(fj) == {"inv"}
+    assert ft["inv"].dtype == torch.as_tensor(A).dtype
+    tol = 1e-10 if dtype == np.float64 else 1e-5
+    assert _rel(fj["inv"], ft["inv"].numpy()) <= tol
+    yj = np.asarray(jdense.dense_solve(fj, jnp.asarray(rhs)))
+    yt = tdense.dense_solve(ft, torch.as_tensor(rhs)).numpy()
+    assert _rel(yj, yt) <= tol
+    assert _rel(np.linalg.solve(A.astype(np.float64), rhs), yt) <= tol
+
+
+@pytest.mark.parametrize("n,counter", [(40, "hymls.coarse.inverse"),
+                                       (2049, "hymls.coarse.lu")])
+def test_dense_factor_counts_its_branch(n, counter):
+    """Each factor `dense_factor` returns counts once, under its kind."""
+    A = torch.eye(n, dtype=torch.float64) * 2.0
+    before = timings.counter_snapshot()
+    for _ in range(2):
+        tdense.dense_factor(A)
+    now = timings.counter_snapshot()
+    delta = {k: now.get(k, 0) - before.get(k, 0)
+             for k in ("hymls.coarse.inverse", "hymls.coarse.lu")}
+    assert delta == {k: 2 if k == counter else 0 for k in delta}
 
 
 def test_dense_solve_promotes_f32_factor():
