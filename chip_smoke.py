@@ -1232,21 +1232,21 @@ def time_paths(solvers, b, rounds: int = 3):
             s["compute"].append(wall_median(S.compute, reps=1)[0])
             if P._structured_active:
                 s["repack"].append(wall_median(
-                    lambda: P.apply_factors_from(P._factors), reps=1)[0])
+                    lambda: P._structured.repack(P.factors.pruned), reps=1)[0])
             t, r = wall_median(
                 lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b),
                 reps=1)
             s["newton"].append(t)
             iters[tag] = r.iters
-            f, a = P.apply_factors, P._aplans
-            P.apply_fn(f, a, v)
+            f = P.factors
+            P.apply_fn(f, v)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(100):
-                P.apply_fn(f, a, v)
+                P.apply_fn(f, v)
             s["issue"].append((time.perf_counter() - t0) / 100)
             torch.cuda.synchronize()
-            s["event"].append(event_ms(lambda: P.apply_fn(f, a, v), reps=5,
+            s["event"].append(event_ms(lambda: P.apply_fn(f, v), reps=5,
                                        inner=10, warmup=1))
     # the profiler runs last: CUPTI, once attached, slows later launches
     out = {}
@@ -1258,8 +1258,8 @@ def time_paths(solvers, b, rounds: int = 3):
         per_iter = (med["newton"] - med["compute"]) / n_it
         n_step, n_mem, busy = device_events(
             lambda: S.newton_step(S.op64.vals, S.solver.op.vals, b))
-        f, a = P.apply_factors, P._aplans
-        n_apply, _, apply_busy = device_events(lambda: P.apply_fn(f, a, v))
+        f = P.factors
+        n_apply, _, apply_busy = device_events(lambda: P.apply_fn(f, v))
         rep = (f", of which the structured repack {med['repack']:.4f} s"
                if "repack" in med else "")
         log(f"{tag} times: compute {med['compute']:.4f} s{rep}; "
@@ -1294,9 +1294,9 @@ def coarse_matrix(P):
     from hymls_tpu_torch.core.preconditioner import (_compute_level,
                                                      _coarse_matrix)
     v = torch.as_tensor(P.K.data, dtype=P.factor_dtype, device=P.device)
-    for dp, plan in zip(P._dplans, P.plans):
+    for dp, plan in zip(P.factor_plans, P.plans):
         _, v = _compute_level(v, dp, apply_ot=plan.apply_ot)
-    dc = P._dcoarse
+    dc = P.extra_plan
     return _coarse_matrix(v, dc["rows"], dc["cols"], dc["diag_entry"],
                           dc["fix_rows"], P.coarse_plan.n)
 
@@ -1305,7 +1305,7 @@ def coarse_inverse_residual(P):
     """max|I - A X| of the coarse inverse of preconditioner `P`,
     computed in f64."""
     A = coarse_matrix(P)
-    X = P.factors["coarse"]["inv"]
+    X = P.factors.full["coarse"]["inv"]
     eye = torch.eye(A.shape[0], dtype=torch.float64, device=A.device)
     return tuple(A.shape), float((eye - A.double() @ X.double()).abs().max())
 
@@ -1402,7 +1402,7 @@ def time_warm(solvers, K, b, rounds: int = 5):
                                                1)[0])
             if P._structured_active:
                 s_["repack"].append(wall_median(
-                    lambda: P.apply_factors_from(P._factors), 1)[0])
+                    lambda: P._structured.repack(P.factors.pruned), 1)[0])
             v64, v32 = S.op64.vals * s, S.solver.op.vals * s
             s_["cold_step"].append(wall_median(
                 lambda: S.newton_step(v64, v32, b), 1)[0])
@@ -1797,7 +1797,7 @@ def drive_direct(device):
         relres = true_relres(K, x, rhs)
         (shape, t_dense), = dense_s
         log(f"direct Schur {tag}: n_sep={P.plans[0].n_sep}, dense factor of "
-            f"{list(shape)} ({'/'.join(P._factors['coarse'])}) "
+            f"{list(shape)} ({'/'.join(P.factors.full['coarse'])}) "
             f"{t_dense:.4f} s of the first compute's {t_compute:.4f} s, "
             f"compute then {t_again:.4f} s (median of 3); one apply leaves "
             f"relres {one:.3e}; f64 GMRES {res.iters} iterations (JAX CPU "
@@ -1860,7 +1860,7 @@ def drive_bgrid(device):
         reset_counts()
         # one eager apply: the first apply_fn also warms up and captures,
         # and a replay runs the captured launches without counting them
-        P._apply_eager(P.apply_factors, P._aplans, v)
+        P._apply_eager(P.factors, v)
         per_apply = dia_matvec.launches
         S = Solver(K, P, params, device=device)
         reset_counts()
@@ -1914,9 +1914,10 @@ def drive_factor_precision(device, same):
             device, f"'Factor Precision' f64, {mode}", (params, K, b),
             ANCHOR_FACTOR64, structured=True, timed_steps=0)
         P = S.precond
+        a11inv = P.factors.full["levels"][0]["A11inv"]
         if P.factor_dtype != torch.float64 or \
-                P._factors["levels"][0]["A11inv"].dtype != torch.float32 or \
-                ("vsum_col" in P._dplans[0]) != (mode == "Vsum f64"):
+                a11inv.dtype != torch.float32 or \
+                ("vsum_col" in P.factor_plans[0]) != (mode == "Vsum f64"):
             raise RuntimeError(f"{mode}: not the upcast chain it names")
         solvers[mode] = S
     tags = list(solvers)
@@ -2489,15 +2490,15 @@ def held_apply(tag, P, b, captures=1):
     bit, with its counters; host issue and CUDA-event time per apply of
     both, and the first apply's ms (warm-up, capture and replay)."""
     from hymls_tpu_torch.utils import timings
-    f, a = P.apply_factors, P._aplans
+    f = P.factors
     before = timings.counter_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x1 = P.apply_fn(f, a, b)
+    x1 = P.apply_fn(f, b)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    x2 = P.apply_fn(f, a, b)
-    e = P._apply_eager(f, a, b)
+    x2 = P.apply_fn(f, b)
+    e = P._apply_eager(f, b)
     c = apply_counters(before)
     if not (torch.equal(x1, e) and torch.equal(x2, e)):
         raise RuntimeError(f"{tag}: the replayed apply differs from the "
@@ -2508,12 +2509,12 @@ def held_apply(tag, P, b, captures=1):
         raise RuntimeError(f"{tag}: counters {c}")
     rec = {"n": b.shape[-1], "shape": list(b.shape),
            "first_apply_ms": first_ms,
-           "issue_us": issue_us(lambda: P.apply_fn(f, a, b)),
-           "eager_issue_us": issue_us(lambda: P._apply_eager(f, a, b)),
-           "event_us": 1e3 * event_ms(lambda: P.apply_fn(f, a, b),
+           "issue_us": issue_us(lambda: P.apply_fn(f, b)),
+           "eager_issue_us": issue_us(lambda: P._apply_eager(f, b)),
+           "event_us": 1e3 * event_ms(lambda: P.apply_fn(f, b),
                                       reps=10, inner=10, warmup=2),
            "eager_event_us": 1e3 * event_ms(
-               lambda: P._apply_eager(f, a, b), reps=10, inner=10,
+               lambda: P._apply_eager(f, b), reps=10, inner=10,
                warmup=2)}
     log(f"apply graph {tag}: {list(b.shape)} {b.dtype}, equal to the "
         f"eager apply bit for bit; first apply (warm-up, capture, "
@@ -2561,30 +2562,30 @@ def drive_apply_graph(device):
     p.sublist("Problem")["nx"] = p.sublist("Problem")["ny"] = 128
     K = cavity_jacobian(128, 128, re=1000.0).tocsr()
     P = f32(K, p)
-    if set(P.apply_factors["coarse"]) != {"inv"}:
+    if set(P.factors.tree["coarse"]) != {"inv"}:
         raise RuntimeError("cavity128: the coarse solve is not the inverse")
     n = K.shape[0]
     b = vec(n)
     out["cavity128"] = held_apply("cavity128", P, b)
     out["cavity128_B8"] = held_apply("cavity128 B=8", P, vec(n, 8, seed=1))
     # the stale factor: capture on K_1, compute(K_2)
-    x_k1 = P.apply_fn(P.apply_factors, P._aplans, b)
+    x_k1 = P.apply_fn(P.factors, b)
     P.compute(cavity_jacobian(128, 128, re=950.0).tocsr())
     out["cavity128_stale"] = held_apply("cavity128 after compute(K_2)", P, b)
-    if torch.equal(x_k1, P._apply_eager(P.apply_factors, P._aplans, b)):
+    if torch.equal(x_k1, P._apply_eager(P.factors, b)):
         raise RuntimeError("compute(K_2) left the apply unchanged")
     # a Newton sequence: compute, capture, replays; nothing may pile up
     reserved, capture_ms = [], []
     before = timings.counter_snapshot()
     for k, re in enumerate((960.0, 1010.0, 1040.0, 990.0)):
         P.compute(cavity_jacobian(128, 128, re=re).tocsr())
-        f, a = P.apply_factors, P._aplans
+        f = P.factors
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        P.apply_fn(f, a, b)
+        P.apply_fn(f, b)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        P.apply_fn(f, a, b)
+        P.apply_fn(f, b)
         torch.cuda.synchronize()
         capture_ms.append((2 * t1 - t0 - time.perf_counter()) * 1e3)
         reserved.append(torch.cuda.memory_reserved())
@@ -2604,9 +2605,9 @@ def drive_apply_graph(device):
     before = timings.counter_snapshot()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         P.compute(K)
-        xs = [P.apply_fn(P.apply_factors, P._aplans, b) for _ in range(3)]
+        xs = [P.apply_fn(P.factors, b) for _ in range(3)]
         torch.cuda.synchronize()
-    e = P._apply_eager(P.apply_factors, P._aplans, b)
+    e = P._apply_eager(P.factors, b)
     c = apply_counters(before)
     if not all(torch.equal(x, e) for x in xs) or c["graph_captures"] != 1:
         raise RuntimeError(f"cavity128 under the profiler: counters {c}, "
@@ -2614,19 +2615,19 @@ def drive_apply_graph(device):
     log("apply graph cavity128: captured under torch.profiler, equal to "
         "the eager apply")
     # a capture that raises: eager for its key, captures again after
-    f, a = P.apply_factors, P._aplans
+    f = P.factors
 
-    def syncing(f, a, v):
+    def syncing(f, v):
         float(v.sum())
-        return P._apply_body(f, a, v)
+        return P._apply_body(f, v)
 
     b2 = vec(n, 2, seed=2)
     before = timings.counter_snapshot()
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        y = P._graphs(syncing, f, a, b2)
+        y = P._graphs(syncing, f, b2)
     c = apply_counters(before)
-    if not torch.equal(y, P._apply_eager(f, a, b2)) or c != {
+    if not torch.equal(y, P._apply_eager(f, b2)) or c != {
             "graph_captures": 0, "graph_replays": 0, "eager": 1} or \
             not any("could not be captured" in str(m.message) for m in w):
         raise RuntimeError(f"a capture that raises: counters {c}, "
@@ -2719,10 +2720,10 @@ def coarse_branches(tag, P, b):
             ms = event_ms(lambda: dense.dense_factor(A), reps=3, inner=1,
                           warmup=1)
             P.compute()
-            if set(P.factors["coarse"]) != COARSE_KEYS[kind]:
-                raise RuntimeError(f"{tag}: coarse factor "
-                                   f"{sorted(P.factors['coarse'])} on the "
-                                   f"{kind} branch")
+            coarse = P.factors.full["coarse"]
+            if set(coarse) != COARSE_KEYS[kind]:
+                raise RuntimeError(f"{tag}: coarse factor {sorted(coarse)} "
+                                   f"on the {kind} branch")
             rec = held_apply(f"{tag} coarse {kind}", P, b)
         rec["factor_ms"] = ms
         out[kind].append(rec)
@@ -2770,9 +2771,9 @@ def coarse_warm_times(solvers, K, b, rounds: int = 3):
                     lambda: S.newton_step_warm(v64, v32, b, facs[kind]), 1)
                 s_["warm_step"].append(t)
                 iters[kind]["warm"].append(r.iters)
-                if set(facs[kind]["coarse"]) != COARSE_KEYS[kind]:
+                if set(facs[kind].full["coarse"]) != COARSE_KEYS[kind]:
                     raise RuntimeError(f"warm {kind}: coarse factor "
-                                       f"{sorted(facs[kind]['coarse'])}")
+                                       f"{sorted(facs[kind].full['coarse'])}")
             relres = true_relres(scaled(K, s), r.x, b)
             worst = max(worst, relres)
             if not relres <= RELRES_OK:

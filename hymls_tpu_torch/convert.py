@@ -1,23 +1,27 @@
 """Carry plans and factors from the JAX package into the port.
 
-The reference `hymls_tpu.Preconditioner` keeps its device plans in
-`_dplans` (one dict per level), `_dcoarse` and, in the direct-Schur
-mode ('Number of Levels' = 0), `_ddirect`; the pruned apply-side plans
-in `_aplans_gen`; and its factor tree as
+The reference `hymls_tpu.Preconditioner` keeps, as the port does, its
+device plans for the factorization (one dict per level), for the
+generic apply (each level's pruned subset) and for the coarse solve
+or, in the direct-Schur mode ('Number of Levels' = 0), the direct
+solve; its factor tree as
 {"levels": [{A11inv, G, A21, blkinv, sc}, ...], "coarse": {...}}
 (direct-Schur mode: {"levels": [{A11inv, G, A21}], "coarse",
-"border": {Q1, W1}}).  Under factor upcast ('Factor Precision' =
-'f64' on an f32 preconditioner) `_dplans` hold f64 transforms and, with
+"border": {Q1, W1}}); and, with the structured apply active, the
+repacked tree {"levels": [{A11, A21, G, blk: [...]}, ...], "coarse"}.
+Under factor upcast ('Factor Precision' = 'f64' on an f32
+preconditioner) the factorization plans hold f64 transforms and, with
 'Schur Assembly' = 'Vsum f64', the split maps, while the factors and
-`_aplans_gen` are f32.  With the structured apply active it also keeps
-the repacked tree `_sfactors`,
-{"levels": [{A11, A21, G, blk: [...]}, ...], "coarse"}.
+the generic apply's plans are f32.
 After `np.asarray` on each leaf these functions copy them into the
-port's tensors, each leaf in its own dtype, so that the port's applies
-can run on the reference's own plans and factors.  The solvers hold no
-parameters; the one thing of theirs that crosses is a deflation space
-with its correction system (`deflation_from_numpy`).  Nothing here
-imports JAX.
+port's tensors, each leaf in its own dtype: the plans as the port's
+`factor_plans` and `generic_plans`, a generic factor tree as the tree
+that `Preconditioner.factors_of` wraps into the `Factors` value that
+`apply_fn` reads, a repacked tree as the tree the port's structured
+program applies.  So the port's applies can run on the reference's own
+plans and factors.  The solvers hold no parameters; the one thing of
+theirs that crosses is a deflation space with its correction system
+(`deflation_from_numpy`).  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ def plans_from_numpy(dplans: List[Dict[str, np.ndarray]],
     """(level plans, coarse plan) as the port's plan tensors: index maps
     int64 (sentinels clamped as the port's own plans are, the split maps
     where a level carries them), masks bool, float fields in their own
-    dtype.  Works on `_dplans` and on the pruned `_aplans_gen`.  The
-    coarse plan is None where `dcoarse` is (the direct-Schur mode).  The
-    reference's gather-strategy arrays (`*_skeys`, `*_spos`, `*_ckeys`)
-    are TPU workarounds and are dropped."""
+    dtype.  Works on the factorization plans and on the generic apply's
+    pruned ones.  The coarse plan is None where `dcoarse` is (the
+    direct-Schur mode).  The reference's gather-strategy arrays
+    (`*_skeys`, `*_spos`, `*_ckeys`) are TPU workarounds and are
+    dropped."""
     levels = []
     for d in dplans:
         ints = [f for f in LEVEL_FIELDS_INT + SPLIT_FIELDS if f in d]

@@ -8,13 +8,13 @@ order, and the host issues one graph launch and two copies in place of
 the ~1000 small ops of a three-level apply.
 
 `ApplyGraphs` is the cache a `Preconditioner` owns.  It holds the graphs
-of one apply-side factor tree at a time, one graph per shape, dtype and
-device of `b` (a (B, n) block has its own), and knows the tree by its
-identity and the `_version` of every tensor in it: a new tree, or an
-in-place change to one of its tensors, drops every graph and the next
-apply captures anew (new containers of the same tensors are the same
-tree).  The cache keeps the tree's tensors alive while a
-graph reads them, so their memory cannot be reused under it.  A capture
+of one factorization at a time, one graph per shape, dtype and device
+of `b` (a (B, n) block has its own), and knows the factorization by the
+identity of its `Factors` value and the `_version` of every tensor the
+apply reads: another `Factors`, or an in-place change to one of those
+tensors, drops every graph and the next apply captures anew.  The cache
+keeps the tensors alive while a graph reads them, so their memory
+cannot be reused under it.  A capture
 that raises (an op that synchronizes, on a path the benchmark does not
 run) leaves its key to the eager apply until the tree changes.
 
@@ -129,71 +129,61 @@ def _tensors(tree, out):
 
 
 class ApplyGraphs:
-    """Captured applies of one factor tree (see the module docstring).
-    `backend` is the capture backend, `CudaGraphs` by default; tests
-    give a stand-in."""
+    """Captured applies of one factorization (see the module
+    docstring).  `backend` is the capture backend, `CudaGraphs` by
+    default; tests give a stand-in."""
 
     def __init__(self, backend=None):
         self.backend = CudaGraphs() if backend is None else backend
-        self._tree = None       # (factors, aplans, tensors, versions)
+        self._tree = None       # (fac, tensors, versions)
         self._graphs = {}       # (shape, dtype, device) -> _Graph | None
         self._retired = []      # dropped graphs, until the next capture
         self._warm = set()      # keys warmed up once in this cache
 
     def clear(self) -> None:
-        """Drop every graph and the tree they read.  The graphs are kept,
-        never to be replayed, until the next capture: the memory pool
-        they share with it must not fall empty in between, or torch
-        would have to free it and build it anew (`CudaGraphs`)."""
+        """Drop every graph and the factorization they read.  The graphs
+        are kept, never to be replayed, until the next capture: the
+        memory pool they share with it must not fall empty in between,
+        or torch would have to free it and build it anew
+        (`CudaGraphs`)."""
         self._retired += [g.graph for g in self._graphs.values() if g]
         self._tree = None
         self._graphs = {}
 
-    def _holds(self, factors, aplans) -> bool:
-        """Whether the graphs read this tree: the same tensors, none
-        changed in place since.  Known by the containers' identity, or,
-        for new containers of the same tensors (the generic apply's
-        pruned view is built anew on each request), by the tensors'."""
+    def _holds(self, fac) -> bool:
+        """Whether the graphs read this factorization, none of its
+        tensors changed in place since."""
         t = self._tree
-        if t is None:
-            return False
-        if t[0] is not factors or t[1] is not aplans:
-            ts = _tensors((factors, aplans), [])
-            if len(ts) != len(t[2]) or \
-                    any(x is not y for x, y in zip(ts, t[2])):
-                return False
-            self._tree = (factors, aplans, t[2], t[3])
-        return all(x._version == v for x, v in zip(t[2], t[3]))
+        return t is not None and t[0] is fac and \
+            all(x._version == v for x, v in zip(t[1], t[2]))
 
-    def __call__(self, body: Callable, factors, aplans, b):
-        """body(factors, aplans, b), the apply, replayed from this
-        tree's graph for b's shape, dtype and device, captured on the
+    def __call__(self, body: Callable, fac, b):
+        """body(fac, b), the apply of the `Factors` value `fac`, replayed
+        from its graph for b's shape, dtype and device, captured on the
         first call; a fresh tensor, never the graph's static output."""
-        if not self._holds(factors, aplans):
+        if not self._holds(fac):
             self.clear()
-            ts = _tensors((factors, aplans), [])
-            self._tree = (factors, aplans, ts, [x._version for x in ts])
+            ts = _tensors((fac.tree, fac.plans), [])
+            self._tree = (fac, ts, [x._version for x in ts])
         key = (tuple(b.shape), b.dtype, b.device)
         g = self._graphs.get(key, False)
         if g is False:
-            g = self._graphs[key] = self._capture(body, factors, aplans, b,
-                                                  key)
+            g = self._graphs[key] = self._capture(body, fac, b, key)
         if g is None:
             count("hymls.apply.eager")
-            return body(factors, aplans, b)
+            return body(fac, b)
         g.x.copy_(b)
         self.backend.replay(g.graph)
         count("hymls.apply.graph_replays")
         return g.y.clone()
 
-    def _capture(self, body, factors, aplans, b, key):
+    def _capture(self, body, fac, b, key):
         x = b.clone(memory_format=torch.contiguous_format)
         if key not in self._warm:
-            self.backend.warm_up(lambda: body(factors, aplans, x), b.device)
+            self.backend.warm_up(lambda: body(fac, x), b.device)
             self._warm.add(key)
         try:
-            graph, y = self.backend.capture(
-                lambda: body(factors, aplans, x), b.device)
+            graph, y = self.backend.capture(lambda: body(fac, x), b.device)
         except Exception as e:
             self._warm.clear()          # the backend's side stream is new
             warnings.warn(f"the apply of a {tuple(b.shape)} {b.dtype} "

@@ -6,13 +6,16 @@ Torch counterpart of hymls_tpu/core/preconditioner.py:
     the host with the same numpy code as the reference (core/plan.py
     and partition/ are byte-identical copies), so both packages build
     identical plans;
-  * `compute_fn(vals, dplans, extra)` maps the matrix value array to
-    all factorizations of all levels: batched dense interior inverses,
+  * `compute_fn(vals)` maps the matrix value array to all
+    factorizations of all levels: batched dense interior inverses,
     the Householder-transformed Schur assembly, the non-Vsum block
     inverses and the dense coarse factor; warm (`prev`: every dense
     inverse polished from the previous step's) and bordered
     (`border_vals`: the system [K V; W' C]);
-  * `apply_fn(factors, aplans, b)` is the V-cycle.  By default
+  * `factorize(vals)` is the one place that calls it: it returns a
+    `Factors`, the factor tree with its pruned generic view and, for
+    the structured apply, its repack;
+  * `apply_fn(fac, b)` is the V-cycle on a `Factors`.  By default
     ('Structured Apply' = "Auto", as in the reference) it is the
     gather-free structured apply of core/structured.py whenever its
     detection succeeds within the element budget; otherwise the
@@ -858,6 +861,53 @@ def _cast_tree(t, src, dst):
     return t.to(dst) if t.dtype == src else t
 
 
+def _prune_factors(factors):
+    """Apply-side view of a factor tree (same tensors, no copies): the
+    V-cycle reads A11inv/G/A21/blkinv (and the border factors, if any)
+    per level and the coarse factor; the assembled Schur values are
+    dropped."""
+    keep = ("A11inv", "G", "A21", "blkinv", "border")
+    out = {"levels": [{k: f[k] for k in keep if k in f}
+                      for f in factors["levels"]],
+           "coarse": factors["coarse"]}
+    if "border" in factors:        # the direct-Schur mode's
+        out["border"] = factors["border"]
+    return out
+
+
+@dataclass(frozen=True, eq=False)
+class Factors:
+    """One factorization, with every view of it that a solver reads,
+    each built once when it is made (`Preconditioner.factorize`, or
+    `factors_of` around a tree made elsewhere):
+
+      full     the factor tree of `compute_fn`: what the warm recompute
+               polishes from and the direct-Schur border reads
+      pruned   its generic apply-side view (`_prune_factors`): what the
+               bordered apply reads and parallel/ stacks
+      tree     what `apply_fn` reads: the structured repack when that
+               program is active, else `pruned` itself
+      plans    the plans that go with `tree`: the structured program's
+               constants, or `generic_plans`
+
+    Compared by identity: the graph cache (core/apply_graph.py) knows a
+    factorization by its `Factors` object."""
+
+    full: dict
+    pruned: dict
+    tree: dict
+    plans: object
+
+    @property
+    def structured(self) -> bool:
+        """Whether `apply_fn` runs the structured program on `tree`."""
+        return self.tree is not self.pruned
+
+
+#: `factorize`'s default border: the preconditioner's own
+_OWN_BORDER = object()
+
+
 class Preconditioner:
     """Multilevel F-matrix preconditioner with the same math as the
     reference HYMLS::Preconditioner: any number of levels (0: the direct
@@ -1059,36 +1109,33 @@ class Preconditioner:
         return h.hexdigest()
 
     def _build_device_plans(self):
-        """The plans as tensors: `_dplans` for the factorization (float
-        fields in the factor dtype), `_aplans_gen`, the subset the
-        generic apply reads (float fields in the apply dtype), and
-        `_extra_plan`, the coarse plan or at L = 0 the direct plan.
+        """The plans as tensors: `factor_plans` for the factorization
+        (float fields in the factor dtype), `generic_plans`, the subset
+        the generic apply reads (float fields in the apply dtype), and
+        `extra_plan`, the coarse plan or at L = 0 the direct plan.
         Their bytes, each tensor once, go to the counter
         `hymls.plan.device_bytes`."""
-        self._dplans = [
+        self.factor_plans = [
             _device_level(p, self.factor_dtype, self.device,
                           split_maps=self._split_assembly and
                           (self._split_levels is None or
                            lev in self._split_levels))
             for lev, p in enumerate(self.plans)]
-        self._aplans_gen = []
-        for d in self._dplans:
+        self.generic_plans = []
+        for d in self.factor_plans:
             a = {k: d[k] for k in APPLY_FIELDS}
             a["w_vals"] = a["w_vals"].to(self.dtype)
-            self._aplans_gen.append(a)
-        self._dcoarse = self._ddirect = None
-        if self.coarse_plan is not None:
-            self._dcoarse = _device_coarse(self.coarse_plan, self.device)
-        if self.direct_plan is not None:
-            self._ddirect = {
+            self.generic_plans.append(a)
+        if self.max_level == 0:
+            self.extra_plan = {
                 f: torch.as_tensor(np.asarray(getattr(self.direct_plan, f),
                                               dtype=np.int64),
                                    device=self.device)
                 for f in DIRECT_FIELDS}
-        self._extra_plan = self._ddirect if self.max_level == 0 \
-            else self._dcoarse
+        else:
+            self.extra_plan = _device_coarse(self.coarse_plan, self.device)
         tensors = {id(t): t for t in _tensors(
-            (self._dplans, self._aplans_gen, self._extra_plan), [])}
+            (self.factor_plans, self.generic_plans, self.extra_plan), [])}
         count("hymls.plan.device_bytes",
               sum(t.numel() * t.element_size() for t in tensors.values()))
 
@@ -1104,7 +1151,6 @@ class Preconditioner:
         yet).  A fallback leaves its reason in `_structured_reason`.
         The direct-Schur mode has no levels to structure."""
         self._structured = None
-        self._sfactors = None
         self._structured_reason = None
         if self.max_level == 0:
             self._structured_reason = "direct-SC mode"
@@ -1133,26 +1179,17 @@ class Preconditioner:
 
     @property
     def _structured_active(self) -> bool:
-        """Whether `apply_fn` runs the structured program.  Bordered
-        applies keep the generic plans, as in the reference."""
+        """Whether `factorize` repacks for the structured program.
+        Bordered factors keep the generic plans, as in the reference."""
         return self._structured is not None and self._border is None
 
-    @property
-    def _aplans(self):
-        """The plan tree matching `apply_factors` and `apply_fn`: the
-        structured program's constants, or the generic plans."""
-        if self._structured_active:
-            return self._structured.consts
-        return self._aplans_gen
-
     # -- numerics (plain functions of their tensor arguments) ---------------
-    def compute_fn(self, vals, dplans, extra, border_vals=None, prev=None):
+    def compute_fn(self, vals, border_vals=None, prev=None):
         """Factor tree {"levels": [{A11inv, G, A21, blkinv, sc}, ...],
         "coarse": {"inv"} or {"lu", "piv"}} of the value array `vals`,
-        assembled in the factor dtype and returned in this
-        preconditioner's dtype.  `extra` is `_extra_plan`: the coarse
-        plan, or at L = 0 the direct plan (the levels then hold A11inv,
-        G and A21 only, see `_compute_direct`).
+        assembled in the factor dtype on `factor_plans` and `extra_plan`
+        and returned in this preconditioner's dtype.  At L = 0 the levels
+        hold A11inv, G and A21 only, see `_compute_direct`.
 
         `border_vals` (V, W, C): the bordered factorization; each level
         gains its border factors under "border" and the coarse factor
@@ -1162,6 +1199,7 @@ class Preconditioner:
         value with a residual-gated cold fallback (dense.warm_inv)."""
         fdt = self.factor_dtype
         store = self.dtype if self._upcast else None
+        dplans, extra = self.factor_plans, self.extra_plan
         v = vals.to(fdt)
         if border_vals is not None:
             border_vals = tuple(a.to(fdt) for a in border_vals)
@@ -1195,52 +1233,44 @@ class Preconditioner:
         fac = {"levels": facs, "coarse": coarse}
         return _cast_tree(fac, fdt, self.dtype) if self._upcast else fac
 
-    def apply_fn(self, factors, aplans, b):
-        """x = M^{-1} b for the apply-side factor tree `factors` and the
-        plan tree `aplans` (`apply_factors` and `_aplans`): the
-        structured program when it is active, else the generic apply;
-        conjugated with T under the B-grid transform.  `b` is a vector
-        (n,) or a block (B, n) of vectors, one per row: a block runs
-        the V-cycle once with a leading batch axis (the JAX package's
-        `jax.vmap` of the apply), and T and T' as one multi-column DIA
-        product each.  Inside the span `hymls.apply`, each level inside
+    def apply_fn(self, fac: Factors, b):
+        """x = M^{-1} b for the factorization `fac`: the structured
+        program on its repack, or the generic apply; conjugated with T
+        under the B-grid transform.  `b` is a vector (n,) or a block
+        (B, n) of vectors, one per row: a block runs the V-cycle once
+        with a leading batch axis (the JAX package's `jax.vmap` of the
+        apply), and T and T' as one multi-column DIA product each.
+        Inside the span `hymls.apply`, each level inside
         `hymls.apply.L<l>` and the coarse solve inside
         `hymls.apply.coarse`.
 
-        On a CUDA `b` the apply of a factor tree is captured once as a
-        CUDA graph and replayed (core/apply_graph.py): the same kernels,
-        one launch from the host; the level and coarse spans then
-        appear only at a capture.  `_apply_eager` is the apply without
-        the graph, what the CPU always runs.  Counts the call in
+        On a CUDA `b` the apply of a factorization is captured once as
+        a CUDA graph and replayed (core/apply_graph.py): the same
+        kernels, one launch from the host; the level and coarse spans
+        then appear only at a capture.  `_apply_eager` is the apply
+        without the graph, what the CPU always runs.  Counts the call in
         `hymls.apply.structured` or `hymls.apply.generic`, by the program
         it runs."""
-        count("hymls.apply.structured" if self._structured_active
+        count("hymls.apply.structured" if fac.structured
               else "hymls.apply.generic")
         if b.device.type != "cuda":
-            return self._apply_eager(factors, aplans, b)
+            return self._apply_eager(fac, b)
         with prof("hymls.apply", 2):
-            return self._graphs(self._apply_body, factors, aplans, b)
+            return self._graphs(self._apply_body, fac, b)
 
-    def _apply_eager(self, factors, aplans, b):
+    def _apply_eager(self, fac, b):
         """`apply_fn` op by op, counted in `hymls.apply.eager`."""
         count("hymls.apply.eager")
         with prof("hymls.apply", 2):
-            return self._apply_body(factors, aplans, b)
+            return self._apply_body(fac, b)
 
-    def _apply_body(self, factors, aplans, b):
-        if self._structured_active:
+    def _apply_body(self, fac, b):
+        if fac.structured:
             def apply(v):
-                return self._structured.apply(factors, v, aplans)
+                return self._structured.apply(fac.tree, v, fac.plans)
         else:
             def apply(v):
-                return self._apply_levels(factors, aplans, v)
-        return apply(b) if self._bgrid is None else self._bgrid(apply, b)
-
-    def apply_generic(self, factors, dplans, b):
-        """The generic gather V-cycle on a pruned generic factor tree
-        (conjugated with T under the B-grid transform)."""
-        def apply(v):
-            return self._apply_levels(factors, dplans, v)
+                return self._apply_levels(fac.tree, fac.plans, v)
         return apply(b) if self._bgrid is None else self._bgrid(apply, b)
 
     def _apply_levels(self, factors, dplans, b):
@@ -1264,17 +1294,18 @@ class Preconditioner:
                                     apply_ot=self.plans[lev].apply_ot)
         return solve_at(0, b)
 
-    def apply_bordered_fn(self, factors, dplans, b, T):
-        """[x; s] = [M V; W' C]^{-1} [b; T] on a pruned bordered factor
-        tree and the generic plans; returns (x, s).  As in the
-        reference, the bordered apply is not conjugated with the B-grid
-        transform.  Blocks b (B, n) and T (B, m), one system per row,
-        run the apply once with a leading batch axis, as `apply_fn`."""
+    def apply_bordered_fn(self, fac: Factors, b, T):
+        """[x; s] = [M V; W' C]^{-1} [b; T] on a bordered factorization,
+        whose `Factors` are always the generic ones; returns (x, s).  As
+        in the reference, the bordered apply is not conjugated with the
+        B-grid transform.  Blocks b (B, n) and T (B, m), one system per
+        row, run the apply once with a leading batch axis, as
+        `apply_fn`."""
         if b.dim() == 2:
             x, s = torch.func.vmap(
-                lambda v, t: self.apply_bordered_fn(factors, dplans, v, t))(
-                    b, T)
+                lambda v, t: self.apply_bordered_fn(fac, v, t))(b, T)
             return x.contiguous(), s.contiguous()
+        factors, dplans = fac.tree, fac.plans
         if self.max_level == 0:
             return _apply_direct_bordered(factors, dplans[0], b, T)
 
@@ -1289,11 +1320,49 @@ class Preconditioner:
         return solve_at(0, b, T)
 
     # -- public API ----------------------------------------------------------
+    def factorize(self, vals, prev: Optional[Factors] = None,
+                  border=_OWN_BORDER) -> Factors:
+        """The factorization of the value array `vals` (numpy or a
+        tensor, in the constructor matrix's CSR order), as one `Factors`
+        value: the factor tree, its pruned generic view and, when the
+        structured program is active, its repack.  `prev`, an earlier
+        `Factors` of the same pattern: the warm recompute (see
+        `compute_fn`).  `border` (V, W, C) or None, by default this
+        preconditioner's own (`set_border`).
+
+        The one place that factors: inside the span `hymls.compute`, the
+        repack inside `hymls.compute.repack`; counts the call in
+        `hymls.compute.calls` and drops the graphs of the applies
+        captured so far (core/apply_graph.py), so that the card frees
+        the old tree's memory at the next capture."""
+        count("hymls.compute.calls")
+        self._graphs.clear()
+        border = self._border if border is _OWN_BORDER else border
+        with prof("hymls.compute", 1):
+            vals = torch.as_tensor(vals, dtype=self.factor_dtype,
+                                   device=self.device)
+            full = self.compute_fn(vals, border,
+                                   None if prev is None else prev.full)
+            pruned = _prune_factors(full)
+            if not self._structured_active:
+                return Factors(full, pruned, pruned, self.generic_plans)
+            with prof("hymls.compute.repack", 2):
+                return Factors(full, pruned, self._structured.repack(pruned),
+                               self._structured.consts)
+
+    def factors_of(self, tree) -> Factors:
+        """A `Factors` around a generic factor tree made elsewhere (the
+        JAX package's, carried over by convert.factors_from_numpy), full
+        or pruned.  It applies with the generic V-cycle on
+        `generic_plans`, whichever program `factorize` would take."""
+        pruned = _prune_factors(tree)
+        return Factors(tree, pruned, pruned, self.generic_plans)
+
     def compute(self, K: Optional[sp.csr_matrix] = None):
         """Numeric factorization.  If K is given it must have the same
         pattern as the constructor matrix (reference
         Preconditioner::SetMatrix reuse semantics)."""
-        return self._factorize(K, prev=None)
+        return self._refactor(K, prev=None)
 
     def recompute(self, K: Optional[sp.csr_matrix] = None):
         """Warm value-only refactorization: `compute(K)` with every
@@ -1303,29 +1372,20 @@ class Preconditioner:
         matrices differ modestly.  Without factors yet, or with a
         border set, it computes cold."""
         warm = self._factors is not None and self._border is None
-        return self._factorize(K, prev=self._factors if warm else None)
+        return self._refactor(K, prev=self._factors if warm else None)
 
-    def _factorize(self, K, prev):
-        count("hymls.compute.calls")
-        self._graphs.clear()
-        with prof("hymls.compute", 1):
-            if K is not None:
-                if self._bgrid_T is not None:
-                    K = self._transform_bgrid(K)
-                K = _canonical(K)
-                if K.nnz != self.K.nnz:
-                    raise ValueError("matrix pattern changed")
-                self.K = K
-            vals = torch.as_tensor(self.K.data, dtype=self.factor_dtype,
-                                   device=self.device)
-            self._factors = self.compute_fn(vals, self._dplans,
-                                            self._extra_plan, self._border,
-                                            prev)
-            if self._structured_active:
-                with prof("hymls.compute.repack", 2):
-                    self._sfactors = self.apply_factors_from(self._factors)
-            else:
-                self._sfactors = None
+    def _refactor(self, K, prev):
+        if K is not None:
+            if self._bgrid_T is not None:
+                K = self._transform_bgrid(K)
+            K = _canonical(K)
+            if K.nnz != self.K.nnz:
+                raise ValueError("matrix pattern changed")
+            self.K = K
+        # the old factors go before the new ones are made (a warm
+        # recompute holds them in `prev` while it reads them)
+        self._factors = None
+        self._factors = self.factorize(self.K.data, prev)
         return self
 
     def set_border(self, V, W=None, C=None):
@@ -1335,7 +1395,6 @@ class Preconditioner:
         the next use; while a border is set the applies take the
         generic plans."""
         self._factors = None
-        self._sfactors = None
         self._graphs.clear()
         if V is None:
             self._border = None
@@ -1354,42 +1413,11 @@ class Preconditioner:
         return self
 
     @property
-    def factors(self):
+    def factors(self) -> Factors:
+        """The current factorization, computed on first use."""
         if self._factors is None:
             self.compute()
         return self._factors
-
-    @staticmethod
-    def _prune_factors(factors):
-        """Apply-side view of the factor tree (same tensors, no copies):
-        the V-cycle reads A11inv/G/A21/blkinv (and the border factors,
-        if any) per level and the coarse factor; the assembled Schur
-        values are dropped."""
-        keep = ("A11inv", "G", "A21", "blkinv", "border")
-        out = {"levels": [{k: f[k] for k in keep if k in f}
-                          for f in factors["levels"]],
-               "coarse": factors["coarse"]}
-        if "border" in factors:        # the direct-Schur mode's
-            out["border"] = factors["border"]
-        return out
-
-    @property
-    def apply_factors(self):
-        """The factor tree `apply_fn` reads: repacked when the
-        structured program is active, else the pruned generic tree."""
-        factors = self.factors     # computes (and repacks) on first use
-        if self._structured_active:
-            return self._sfactors
-        return self._prune_factors(factors)
-
-    def apply_factors_from(self, factors):
-        """The apply-side factor tree of an externally computed factor
-        tree (e.g. a Newton step's re-factorization): repacked into the
-        structured layout when that program is active."""
-        pruned = self._prune_factors(factors)
-        if self._structured_active:
-            return self._structured.repack(pruned)
-        return pruned
 
     def dump_levels(self, prefix: str = "level") -> list:
         """Write the level-0 matrix and every next-level matrix to
@@ -1401,7 +1429,7 @@ class Preconditioner:
         paths = [f"{prefix}0.mtx"]
         write_matrix(paths[0], self.K)
         f64 = torch.float64
-        dplans = self._dplans if self.factor_dtype == f64 else [
+        dplans = self.factor_plans if self.factor_dtype == f64 else [
             _device_level(p, f64, self.device) for p in self.plans]
         v = torch.as_tensor(self.K.data, dtype=f64, device=self.device)
         for lev in range(self.max_level):
@@ -1417,28 +1445,21 @@ class Preconditioner:
     def sharded_sapply_fn(self, mesh):
         """The structured apply with its box grids split over the ranks
         of `mesh` (core/structured.py ShardedApply), with the signature
-        of `apply_fn`: sapply(sfactors, consts, b) -> x, the input and
-        the output replicated on every rank (the reference's
-        sharded_sapply_fn).  With the B-grid transform, T' before and T
-        after it, replicated, through the same DIA operators as the
-        single-process apply.  None without a structured program."""
+        of `apply_fn`: sapply(fac, b) -> x on a structured `Factors`,
+        the input and the output replicated on every rank (the
+        reference's sharded_sapply_fn).  With the B-grid transform, T'
+        before and T after it, replicated, through the same DIA
+        operators as the single-process apply.  None without a
+        structured program."""
         if self._structured is None:
             return None
         apply_sh = self._structured.sharded_apply_fn(mesh)
 
-        def sapply(factors, consts, b):
+        def sapply(fac, b):
             def apply(v):
-                return apply_sh(factors, v, consts)
+                return apply_sh(fac.tree, v, fac.plans)
             return apply(b) if self._bgrid is None else self._bgrid(apply, b)
         return sapply
-
-    def apply_inverse_fn(self):
-        """(apply_fn, factors, plans) with apply_fn(factors, plans, b)
-        -> x, computing first when there are no factors yet: what a
-        solver needs to embed the apply in its own loop."""
-        if self._factors is None:
-            self.compute()
-        return self.apply_fn, self.apply_factors, self._aplans
 
     def apply_inverse(self, b):
         """x = P^{-1} b for a single vector (tensor or numpy).  With a
@@ -1448,7 +1469,7 @@ class Preconditioner:
         if self._border is not None:
             T = b.new_zeros(self._border[0].shape[1])
             return self.apply_inverse_bordered(b, T)[0]
-        return self.apply_fn(self.apply_factors, self._aplans, b)
+        return self.apply_fn(self.factors, b)
 
     def apply_inverse_bordered(self, b, t):
         """(x, s) = [P V; W' C]^{-1} [b; t]."""
@@ -1456,6 +1477,6 @@ class Preconditioner:
             raise ValueError("apply_inverse_bordered needs a border "
                              "(set_border)")
         return self.apply_bordered_fn(
-            self.apply_factors, self._aplans_gen,
+            self.factors,
             torch.as_tensor(b, dtype=self.dtype, device=self.device),
             torch.as_tensor(t, dtype=self.dtype, device=self.device))

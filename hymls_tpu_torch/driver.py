@@ -205,7 +205,7 @@ def run_case(params: Params, dtype=torch.float64,
             # enqueue, which would let the factorization leak into the
             # 'solve' timer
             from .utils.timings import sync
-            sync(P.factors)
+            sync(P.factors.tree)
 
         for s in range(num_solves):
             if not read_problem or b0 is None:

@@ -136,7 +136,8 @@ class DistributedSolve:
       matvec(pvals, x_l)    y = K x, ppermute halo exchange
       precond(factors, x_l) halo V-cycle apply
       stack_factors(f)      pruned generic factors -> halo layout
-      compute(vals)         the distributed factorization (dcompute)
+      factors(vals, rep)    halo-layout factors of vals: dcompute's,
+                            else the replicated rep().pruned stacked
       allreduce(x)          psum, the Krylov solvers' reduction hook
     """
 
@@ -206,8 +207,14 @@ class DistributedSolve:
     def stack_factors(self, factors):
         return self.app.stack_factors(factors)
 
-    def compute(self, vals):
-        return self.dcompute.compute(vals)
+    def factors(self, vals, replicated):
+        """This rank's halo-layout factors of the values `vals`: the
+        distributed factorization where the structure allows it
+        (dcompute), else the pruned view of the replicated `Factors`
+        that `replicated()` gives, stacked."""
+        if self.dcompute is not None:
+            return self.dcompute.compute(vals)
+        return self.stack_factors(replicated().pruned)
 
     def allreduce(self, x):
         return C.psum(self.mesh, x)

@@ -353,7 +353,7 @@ class DistributedCompute:
         self.fplans = [rank_slice(d, r, dev, precond.factor_dtype, ("Q",))
                        for d in fplans]
         self._coarse_vsrc = torch.as_tensor(coarse["vsrc"], device=dev)
-        self.dcoarse = precond._extra_plan
+        self.dcoarse = precond.extra_plan
         self._cp_n = precond.coarse_plan.n
 
     def _exchange(self, vals_ext, fp, prefix, offsets, lev):

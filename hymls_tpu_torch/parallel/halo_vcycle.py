@@ -583,8 +583,7 @@ class HaloApply:
                       for m, p in zip(meta, precond.plans)]
         self._pair_blk = [m["max_blk"] == 1 and p.blk_pos.shape[0] > 1
                           for m, p in zip(meta, precond.plans)]
-        self.factors = self.stack_factors(
-            precond._prune_factors(precond.factors))
+        self.factors = self.stack_factors(precond.factors.pruned)
 
     # -- exchanges -----------------------------------------------------------
     def _exchange(self, vals_ext, dp, prefix, offsets, lev):
@@ -713,12 +712,6 @@ class HaloApply:
                                  "bW": bW_ext[self._bwsel[l]]}
             out["levels"].append(lev)
         return out
-
-    def refresh_factors(self, precond):
-        """Restack after a precond.compute()/recompute() (same plans)."""
-        self.factors = self.stack_factors(
-            precond._prune_factors(precond.factors))
-        return self
 
     @property
     def bordered(self) -> bool:

@@ -34,8 +34,8 @@ def shard_factors(precond, mesh):
     """(factors, plans) of this rank: on every level whose subdomain
     count divides the mesh, its block of the per-subdomain factor and
     plan arrays; everything else whole."""
-    factors = precond._prune_factors(precond.factors)
-    aplans = precond._aplans_gen
+    factors = precond.factors.pruned
+    aplans = precond.generic_plans
     ndev, r = mesh.size, mesh.rank
     fac_out, pl_out = [], []
     for sh, fac, dp in zip(_sharded_levels(precond, ndev),

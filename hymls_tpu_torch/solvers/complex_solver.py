@@ -113,8 +113,6 @@ class ComplexSolver:
                           "replicated apply")
             self.distributed = False
             return None
-        if self.precond._factors is None:
-            self.precond.compute()
         try:
             self._dist = make_distributed_solve(self._A, self.precond, mesh)
         except UnshardableError as e:
@@ -135,8 +133,7 @@ class ComplexSolver:
         result with the global z ([z; s] with a border)."""
         pvA = dist.prepare(self.opA.vals)
         pvB = None if self._B is None else self._dist_B[0](self.opB.vals)
-        fac_st = dist.stack_factors(
-            self.precond._prune_factors(self.precond.factors))
+        fac_st = dist.stack_factors(self.precond.factors.pruned)
         cd = self.dtype
 
         def mv(z):
@@ -198,7 +195,7 @@ class ComplexSolver:
         """Solve (A + iB) z = b, or with a border set the bordered
         system with a zero border right-hand side; returns
         (z, KrylovResult)."""
-        apply_fn, factors, dplans = self.precond.apply_inverse_fn()
+        apply_fn, fac = self.precond.apply_fn, self.precond.factors
         dist = self._make_dist() if self.distributed else None
         b = torch.as_tensor(b, device=self.device).to(self.dtype)
         if dist is not None:
@@ -214,9 +211,8 @@ class ComplexSolver:
 
             def prec(z):
                 zr, zi = real_imag(z)
-                return torch.complex(
-                    apply_fn(factors, dplans, zr),
-                    apply_fn(factors, dplans, zi)).to(self.dtype)
+                return torch.complex(apply_fn(fac, zr),
+                                     apply_fn(fac, zi)).to(self.dtype)
 
             res = krylov.gmres(op, b, torch.zeros_like(b), prec, tol=tol,
                                maxiter=maxiter, left=False)
@@ -234,8 +230,8 @@ class ComplexSolver:
 
         def precz(z):
             (xr, xi), (sr, si) = real_imag(z[:n]), real_imag(z[n:])
-            xr, sr = bord_fn(factors, dplans, xr, sr)
-            xi, si = bord_fn(factors, dplans, xi, si)
+            xr, sr = bord_fn(fac, xr, sr)
+            xi, si = bord_fn(fac, xi, si)
             return torch.cat([torch.complex(xr, xi),
                               torch.complex(sr, si)]).to(self.dtype)
 

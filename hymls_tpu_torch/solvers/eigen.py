@@ -126,7 +126,7 @@ class JDQR:
         """(corr, corr_c): the real and the conjugate-pair correction
         solves, closed over the preconditioner's apply and factors."""
         p = self.precond
-        apply_fn, factors, dplans = p.apply_inverse_fn()
+        apply_fn, fac = p.apply_fn, p.factors
         if p._border is not None:
             if self.use_bordered:
                 # bordered preconditioner: apply [P V; W' C]^{-1} with
@@ -136,8 +136,8 @@ class JDQR:
                 bord_fn = p.apply_bordered_fn
                 mb = p._border[0].shape[1]
 
-                def apply_fn(factors, dplans, x):     # noqa: F811
-                    return bord_fn(factors, dplans, x, x.new_zeros(mb))[0]
+                def apply_fn(fac, x):                 # noqa: F811
+                    return bord_fn(fac, x, x.new_zeros(mb))[0]
             else:
                 # P was computed with a nullspace border, whose
                 # augmented coarse factor the plain apply cannot
@@ -146,10 +146,7 @@ class JDQR:
                 # directions are handled by the JD oblique projectors
                 # (reference HYMLS_PhistCustomCorrectionSolver.cpp
                 # preconditions with the plain hierarchy)
-                vals = torch.as_tensor(p.K.data, dtype=p.factor_dtype,
-                                       device=p.device)
-                factors = p.apply_factors_from(p.compute_fn(
-                    vals, p._dplans, p._extra_plan, None, None))
+                fac = p.factorize(p.K.data, border=None)
         opK, opM = self.opK, self.opM
         pvK = opK.prepare(opK.vals)
         pvM = None if opM is None else opM.prepare(opM.vals)
@@ -181,7 +178,7 @@ class JDQR:
                 return proj_l(y)
 
             def prec(x):
-                return proj_r(apply_fn(factors, dplans, proj_l(x)))
+                return proj_r(apply_fn(fac, proj_l(x)))
 
             self.corrections["real"] += 1
             return krylov.gmres(op, -r, torch.zeros_like(r), prec,
@@ -218,8 +215,8 @@ class JDQR:
 
             def prec(x):
                 xr, xi = real_imag(proj_l(x))
-                return proj_r(torch.complex(apply_fn(factors, dplans, xr),
-                                            apply_fn(factors, dplans, xi)))
+                return proj_r(torch.complex(apply_fn(fac, xr),
+                                            apply_fn(fac, xi)))
 
             self.corrections["pair"] += 1
             return krylov.gmres(op, -r, torch.zeros_like(r), prec,

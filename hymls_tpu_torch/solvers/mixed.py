@@ -11,11 +11,13 @@ the DIA kernel runs in f64 as well as in f32.  Under 'Distributed Apply'
 with a mesh, the refinement loop stays replicated around the structured
 apply sharded over the ranks when the structured program is active
 (reference mixed.py:139-155); else the whole Newton step runs
-owner-sharded (`refine_dist`, reference mixed.py:219-296).
+owner-sharded (reference mixed.py:219-296).  One refinement loop
+(`IterativeRefinementSolver.refine`) serves every layout and the
+bordered solve.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -29,6 +31,22 @@ from ..utils.timings import count, profiled, prof
 from .solver import Solver
 from .krylov import KrylovResult
 from . import krylov
+
+
+def _identity(x):
+    return x
+
+
+class _Loop(NamedTuple):
+    """What the refinement loop takes from where its vectors live: the
+    f64 residual's operator K x, the inner solve (r32, rel) ->
+    KrylovResult of a pass, the global norm, and the scatter of b and
+    gather of x (the identity on whole vectors)."""
+    residual: Callable
+    inner: Callable
+    norm: Callable = torch.linalg.norm
+    scatter: Callable = _identity
+    gather: Callable = _identity
 
 
 class IterativeRefinementSolver:
@@ -92,59 +110,78 @@ class IterativeRefinementSolver:
         return self
 
     @profiled("hymls.refine", 1)
-    def refine(self, vals64, vals32, factors, aplans, b,
-               apply_fn=None) -> KrylovResult:
-        """The refinement loop: f64 residual -> f32 Krylov correction ->
-        f64 update, until the true relative residual reaches the outer
-        tolerance or `max_passes` passes ran.  `iters` counts the inner
-        f32 iterations of all passes.  `apply_fn` (default the
-        preconditioner's own) is the sharded structured apply under
-        'Distributed Apply'.  Inside the span `hymls.refine`, each pass's
-        f64 residual inside `hymls.refine.residual`; counts the solve in
-        `hymls.refine.solves` and each pass in `hymls.refine.passes`."""
+    def refine(self, b, loop: _Loop) -> KrylovResult:
+        """The refinement loop: f64 residual -> f32 correction -> f64
+        update, until the true relative residual reaches the outer
+        tolerance or `max_passes` passes ran.  `loop` says where the
+        vectors live and how each pass solves (`_replicated`, `_owner`,
+        `apply_inverse`); `iters` counts the inner f32 iterations of all
+        passes, and x comes back global.  Inside the span `hymls.refine`,
+        each pass's f64 residual inside `hymls.refine.residual`; counts
+        the solve in `hymls.refine.solves` and each pass in
+        `hymls.refine.passes`."""
         count("hymls.refine.solves")
-        pv64 = self.op64.prepare(vals64)
-        pv32 = self.solver.op.prepare(vals32)
-        mv32 = self.solver.op.matvec_prepared
-        mv64 = self.op64.matvec_prepared
-        apply_fn = apply_fn or self.precond.apply_fn
-        cg = self.solver.method == "CG"
-        nb = float(torch.linalg.norm(b))
+        b = loop.scatter(b)
+        nb = float(loop.norm(b))
         nb = nb if nb > 0 else 1.0
-
-        def op(x):
-            return mv32(pv32, x)
-
-        def prec(x):
-            return apply_fn(factors, aplans, x)
-
         x = torch.zeros_like(b)
         r = b
-        rel = float(torch.linalg.norm(r)) / nb
+        rel = float(loop.norm(r)) / nb
         iters = passes = 0
         while rel > self.tol and passes < self.max_passes:
-            # adaptive inner target (reference mixed.py:193-201): the
-            # last pass only needs the reduction that carries rel to the
-            # outer tolerance; 0.3 covers implicit-vs-true slack
-            tol_k = float(np.float32(np.clip(0.3 * self.tol / rel,
-                                             self.inner_tol, 0.3)))
-            r32 = r.to(torch.float32)
-            x32 = torch.zeros_like(r32)
-            if cg:
-                res = krylov.cg(op, r32, x32, prec, tol=tol_k,
-                                maxiter=self.inner_maxiter)
-            else:
-                res = krylov.gmres(op, r32, x32, prec, tol=tol_k,
-                                   maxiter=self.inner_maxiter)
+            res = loop.inner(r.to(torch.float32), rel)
             x = x + res.x.to(torch.float64)
             with prof("hymls.refine.residual", 2):
-                r = b - mv64(pv64, x)
-                rel = float(torch.linalg.norm(r)) / nb
+                r = b - loop.residual(x)
+                rel = float(loop.norm(r)) / nb
             iters += res.iters
             passes += 1
             count("hymls.refine.passes")
-        return KrylovResult(x=x, iters=iters, relres=rel,
+        return KrylovResult(x=loop.gather(x), iters=iters, relres=rel,
                             converged=rel <= self.tol)
+
+    def _krylov(self, op, prec, **kw):
+        """The inner solve of a pass: f32 CG or GMRES (by the solver's
+        method) on `op` and `prec` from a zero start, to the adaptive
+        target of the reference (mixed.py:193-201): the last pass only
+        needs the reduction that carries rel to the outer tolerance;
+        0.3 covers implicit-vs-true slack."""
+        cg = self.solver.method == "CG"
+
+        def inner(r32, rel):
+            tol_k = float(np.float32(np.clip(0.3 * self.tol / rel,
+                                             self.inner_tol, 0.3)))
+            solve = krylov.cg if cg else krylov.gmres
+            return solve(op, r32, torch.zeros_like(r32), prec, tol=tol_k,
+                         maxiter=self.inner_maxiter, **kw)
+        return inner
+
+    def _replicated(self, vals64, vals32, fac, sapply) -> _Loop:
+        """The loop on whole vectors: the operators in f32 and f64
+        and the V-cycle of the `Factors` value `fac`, through the sharded
+        structured apply `sapply` where there is one."""
+        pv64 = self.op64.prepare(vals64)
+        pv32 = self.solver.op.prepare(vals32)
+        mv32, mv64 = self.solver.op.matvec_prepared, self.op64.matvec_prepared
+        apply_fn = sapply or self.precond.apply_fn
+        return _Loop(
+            residual=lambda x: mv64(pv64, x),
+            inner=self._krylov(lambda x: mv32(pv32, x),
+                               lambda x: apply_fn(fac, x)))
+
+    def _owner(self, dist, vals64, vals32, fac_st) -> _Loop:
+        """The loop in the owner layout (reference mixed.py:
+        _build_fused_dist): the halo matvec in f32 and f64, the halo
+        V-cycle on this rank's factors `fac_st`, and every norm and
+        Krylov reduction a psum, so that all ranks take the same
+        passes."""
+        pv64, pv32 = dist.prepare(vals64), dist.prepare(vals32)
+        return _Loop(
+            residual=lambda x: dist.matvec(pv64, x),
+            inner=self._krylov(lambda x: dist.matvec(pv32, x),
+                               lambda x: dist.precond(fac_st, x),
+                               allreduce=dist.allreduce),
+            norm=dist.norm, scatter=dist.scatter, gather=dist.gather)
 
     def _dist(self):
         """Under 'Distributed Apply', (sapply, None) with the sharded
@@ -158,137 +195,73 @@ class IterativeRefinementSolver:
             return sapply, None
         return None, self.solver._make_dist()
 
-    @profiled("hymls.refine", 1)
-    def refine_dist(self, dist, vals64, vals32, fac_st, b) -> KrylovResult:
-        """`refine` in the owner layout (reference mixed.py:
-        _build_fused_dist): f32 inner GMRES on the halo matvec and halo
-        V-cycle, the f64 residual through the same exchange matvec, and
-        every norm a psum, so that all ranks take the same passes.
-        Returns the result with the global x.  Spans and counters as
-        `refine`."""
-        count("hymls.refine.solves")
-        pv64, pv32 = dist.prepare(vals64), dist.prepare(vals32)
-        cg = self.solver.method == "CG"
-        b_l = dist.scatter(b)
-        nb = float(dist.norm(b_l))
-        nb = nb if nb > 0 else 1.0
-
-        def op(x):
-            return dist.matvec(pv32, x)
-
-        def prec(x):
-            return dist.precond(fac_st, x)
-
-        x = torch.zeros_like(b_l)
-        r = b_l
-        rel = float(dist.norm(r)) / nb
-        iters = passes = 0
-        while rel > self.tol and passes < self.max_passes:
-            tol_k = float(np.float32(np.clip(0.3 * self.tol / rel,
-                                             self.inner_tol, 0.3)))
-            r32 = r.to(torch.float32)
-            x32 = torch.zeros_like(r32)
-            kw = dict(tol=tol_k, maxiter=self.inner_maxiter,
-                      allreduce=dist.allreduce)
-            res = krylov.cg(op, r32, x32, prec, **kw) if cg else \
-                krylov.gmres(op, r32, x32, prec, **kw)
-            x = x + res.x.to(torch.float64)
-            with prof("hymls.refine.residual", 2):
-                r = b_l - dist.matvec(pv64, x)
-                rel = float(dist.norm(r)) / nb
-            iters += res.iters
-            passes += 1
-            count("hymls.refine.passes")
-        return KrylovResult(x=dist.gather(x), iters=iters, relres=rel,
-                            converged=rel <= self.tol)
-
-    def newton_step(self, vals64, vals32, b) -> KrylovResult:
-        """One Newton step: f32 re-factorization from the f64 values,
-        the structured repack when that apply is active, then the
-        refinement solve (the counterpart of the reference's
-        `newton_step_fn` program).  Distributed with the structured
-        program active: the replicated factorization and repack, and the
-        refinement loop on the sharded structured apply; else the
-        factorization of parallel/dist_compute.py straight into
-        `refine_dist`."""
-        P = self.precond
-        sapply, dist = self._dist()
-        if dist is not None:
-            b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-            fac_st = dist.compute(vals64) if dist.dcompute is not None \
-                else dist.stack_factors(P._prune_factors(
-                    P.compute_fn(vals64, P._dplans, P._extra_plan)))
-            res = self.refine_dist(dist, vals64, vals32, fac_st, b)
-            self._last_result = res
-            return res
-        factors = P.apply_factors_from(P.compute_fn(vals64, P._dplans,
-                                                    P._extra_plan))
+    def _solve(self, vals64, vals32, b, fac, sapply, dist) -> KrylovResult:
+        """The refinement solve of b on the values (vals64, vals32) in
+        the layout that `_dist` picked: on whole vectors around the
+        V-cycle of the `Factors` value `fac` (through the sharded
+        structured apply `sapply` where there is one), or with `dist`
+        in the owner layout around this rank's halo-layout factors
+        `fac`."""
         b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        res = self.refine(vals64, vals32, factors, P._aplans, b, sapply)
-        self._last_result = res
+        loop = self._replicated(vals64, vals32, fac, sapply) \
+            if dist is None else self._owner(dist, vals64, vals32, fac)
+        res = self._last_result = self.refine(b, loop)
         return res
 
-    def newton_step_warm(self, vals64, vals32, b, prev):
-        """`newton_step` threading the factor tree through a Newton
-        sequence (the counterpart of the reference's
-        `newton_step_warm_fn`): the dense inverses are polished from
-        `prev` (seed it with `precond.factors` of a cold compute), each
-        with its residual-gated cold fallback.  Returns
-        (KrylovResult, factors) with the unpruned factor tree for the
-        next step."""
-        P = self.precond
+    def newton_step(self, vals64, vals32, b) -> KrylovResult:
+        """One Newton step: f32 re-factorization from the f64 values
+        (`Preconditioner.factorize`), then the refinement solve (the
+        counterpart of the reference's `newton_step_fn` program).
+        Distributed with the structured program active: the replicated
+        factorization, and the refinement loop on the sharded
+        structured apply; else the factorization of
+        parallel/dist_compute.py where the structure allows it, straight
+        into the owner-layout loop."""
         sapply, dist = self._dist()
-        factors = P.compute_fn(vals64, P._dplans, P._extra_plan, prev=prev)
-        b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        if dist is not None:
-            # the distributed solve around the replicated warm recompute
-            res = self.refine_dist(
-                dist, vals64, vals32,
-                dist.stack_factors(P._prune_factors(factors)), b)
-        else:
-            res = self.refine(vals64, vals32, P.apply_factors_from(factors),
-                              P._aplans, b, sapply)
-        self._last_result = res
-        return res, factors
+
+        def factorize():
+            return self.precond.factorize(vals64)
+        fac = factorize() if dist is None else \
+            dist.factors(vals64, factorize)
+        return self._solve(vals64, vals32, b, fac, sapply, dist)
+
+    def newton_step_warm(self, vals64, vals32, b, prev):
+        """`newton_step` threading the factorization through a Newton
+        sequence (the counterpart of the reference's
+        `newton_step_warm_fn`): the dense inverses are polished from the
+        `Factors` value `prev` (seed it with `precond.factors` of a cold
+        compute), each with its residual-gated cold fallback; the
+        distributed solve runs around the replicated warm recompute.
+        Returns (KrylovResult, the new Factors) for the next step."""
+        sapply, dist = self._dist()
+        fac = self.precond.factorize(vals64, prev)
+        res = self._solve(vals64, vals32, b, fac if dist is None else
+                          dist.stack_factors(fac.pruned), sapply, dist)
+        return res, fac
 
     def solve(self, b):
         """Refinement solve with the current factors; returns x."""
-        b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
         sapply, dist = self._dist()
-        if dist is not None:
-            res = self.refine_dist(
-                dist, self.op64.vals, self.solver.op.vals,
-                dist.stack_factors(self.precond._prune_factors(
-                    self.precond.factors)), b)
-        else:
-            res = self.refine(self.op64.vals, self.solver.op.vals,
-                              self.precond.apply_factors,
-                              self.precond._aplans, b, sapply)
-        self._last_result = res
-        return res.x
+        fac = self.precond.factors
+        return self._solve(self.op64.vals, self.solver.op.vals, b,
+                           fac if dist is None else
+                           dist.stack_factors(fac.pruned), sapply, dist).x
 
     def apply_inverse(self, b):
-        """Refinement solve through `Solver.apply_inverse` passes;
-        returns (x, KrylovResult)."""
-        b64 = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-        nb = float(torch.linalg.norm(b64))
-        x = torch.zeros_like(b64)
-        total_iters = 0
-        relres = 1.0
-        converged = False
-        for _pass in range(self.max_passes):
-            r = b64 - self.op64(x)
-            relres = float(torch.linalg.norm(r)) / nb
-            if relres <= self.tol:
-                converged = True
-                break
-            d, res = self.solver.apply_inverse(r.to(torch.float32))
-            total_iters += res.iters
-            x = x + d.to(torch.float64)
-        res = KrylovResult(x=x, iters=total_iters, relres=relres,
-                           converged=converged)
-        self._last_result = res
-        return x, res
+        """Refinement solve through `Solver.apply_inverse` passes at the
+        solver's fixed inner tolerance (the bordered path); returns
+        (x, KrylovResult)."""
+        b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
+        pv64 = self.op64.prepare(self.op64.vals)
+
+        def inner(r32, rel):
+            d, res = self.solver.apply_inverse(r32)
+            return res._replace(x=d)
+
+        res = self._last_result = self.refine(b, _Loop(
+            residual=lambda x: self.op64.matvec_prepared(pv64, x),
+            inner=inner))
+        return res.x, res
 
     @property
     def num_iter(self) -> int:

@@ -117,8 +117,6 @@ class Solver:
                           "replicated apply")
             self.distributed = False
             return None
-        if self.precond._factors is None:
-            self.precond.compute()
         try:
             self._dist = make_distributed_solve(self._K, self.precond,
                                                 mesh)
@@ -213,11 +211,10 @@ class Solver:
             self._prev_x = x
             return x, res
         pvals = self.op.prepare(self.op.vals)
-        factors = self.precond.apply_factors
-        dplans = self.precond._aplans
+        fac = self.precond.factors
 
         if self._border is not None:
-            res = self._solve_bordered(pvals, factors, dplans, b, x0, t)
+            res = self._solve_bordered(pvals, fac, b, x0, t)
             n = self.op.n
             x = res.x[:n]
             self._border_coeffs = res.x[n:].cpu().numpy()
@@ -228,7 +225,7 @@ class Solver:
                 return self.op.matvec_prepared(pvals, x)
 
             def prec(x):
-                return apply_fn(factors, dplans, x)
+                return apply_fn(fac, x)
 
             if self.method == "CG":
                 res = krylov.cg(op, b, x0, prec, tol=self.tol,
@@ -259,9 +256,7 @@ class Solver:
                   allreduce=dist.allreduce)
         gm = dict(left=self.lor == "Left", restart=self.restart)
         if self._border is None:
-            fac_st = dist.compute(self.op.vals) if dist.dcompute is not None \
-                else dist.stack_factors(
-                    self.precond._prune_factors(self.precond.factors))
+            fac_st = dist.factors(self.op.vals, lambda: self.precond.factors)
 
             def op(x):
                 return dist.matvec(pv, x)
@@ -276,8 +271,7 @@ class Solver:
                 res = krylov.gmres(op, b_l, x0_l, prec, **kw, **gm)
             return res._replace(x=dist.gather(res.x))
 
-        fac_st = dist.stack_factors(
-            self.precond._prune_factors(self.precond.factors))
+        fac_st = dist.stack_factors(self.precond.factors.pruned)
         if "border" not in fac_st["levels"][0]:
             raise RuntimeError("the distributed bordered solve needs the "
                                "bordered factors")
@@ -304,7 +298,7 @@ class Solver:
                            **kw, **gm)
         return res._replace(x=torch.cat(aug.gather_aug(res.x)))
 
-    def _solve_bordered(self, pvals, factors, dplans, b, x0, t):
+    def _solve_bordered(self, pvals, fac, b, x0, t):
         """GMRES on the augmented system: the operator
         [K x + V s; W' x + C s], preconditioned by the bordered
         V-cycle."""
@@ -321,7 +315,7 @@ class Solver:
 
         def prec(z):
             return torch.cat(self.precond.apply_bordered_fn(
-                factors, dplans, z[:n], z[n:]))
+                fac, z[:n], z[n:]))
 
         return krylov.gmres(op, torch.cat([b, t]),
                             torch.cat([x0, b.new_zeros(m)]), prec,
@@ -342,7 +336,7 @@ class Solver:
             "Deflated Subspace Dimension", 0)
         if k <= 0:
             return self
-        apply_fn, factors, dplans = self.precond.apply_inverse_fn()
+        apply_fn, fac = self.precond.apply_fn, self.precond.factors
         self._opT = make_operator(self._K.T.tocsr(), dtype=self.dtype,
                                   device=self.device)
         n = self.op.n
@@ -381,7 +375,7 @@ class Solver:
                                 device=self.device)
         if not aug:
             def vcycle(Z):
-                return apply_fn(factors, dplans, Z)
+                return apply_fn(fac, Z)
             apply_block = vcycle if Mop is None else \
                 product_operator(vcycle, Mop)
         else:
@@ -390,7 +384,7 @@ class Solver:
                 if Mop is not None:
                     zx = Mop(zx)
                 return torch.cat(self.precond.apply_bordered_fn(
-                    factors, dplans, zx, zs), dim=1)
+                    fac, zx, zs), dim=1)
 
         self._defl_info = {}
         if V is None:
@@ -405,7 +399,7 @@ class Solver:
                                    device=self.device)
 
         def proj_solve(r):
-            res = solve(factors, dplans, Vt, as_t(r))
+            res = solve(fac, Vt, as_t(r))
             self._last_res = res
             return res.x.cpu().numpy()
 
@@ -415,7 +409,7 @@ class Solver:
             the last column's.  Replicated also under 'Distributed
             Apply', as in the reference: the setup runs once, the
             projected solves per right-hand side are the hot path."""
-            res = solve_setup(factors, dplans, Vt, as_t(Rhs.T))
+            res = solve_setup(fac, Vt, as_t(Rhs.T))
             self._last_res = krylov.KrylovResult(
                 x=res.x[-1], iters=int(res.iters[-1]),
                 relres=float(res.relres[-1]),
@@ -429,7 +423,7 @@ class Solver:
         return self
 
     def _build_proj_solve(self, aug: bool = False):
-        """(solve, solve_setup), each solve(factors, dplans, V, b):
+        """(solve, solve_setup), each solve(fac, V, b):
         GMRES from a zero start vector on the projected system
         (I - VV') A (I - VV'), preconditioned by the projected V-cycle;
         with `aug` on the bordered system.  A block b (B, n) of
@@ -450,25 +444,23 @@ class Solver:
         if not aug:
             apply_fn = self.precond.apply_fn
 
-            def solve(factors, dplans, V, b):
+            def solve(fac, V, b):
                 pvals = self.op.prepare(self.op.vals)
                 return run(
                     projected_operator(
                         lambda x: self.op.matvec_prepared(pvals, x), V),
-                    projected_operator(
-                        lambda x: apply_fn(factors, dplans, x), V), b)
+                    projected_operator(lambda x: apply_fn(fac, x), V), b)
             if dist is None:
                 return solve, solve
 
-            def solve_dist(factors, dplans, V, b):
+            def solve_dist(fac, V, b):
                 """The deflated iteration owner-sharded (reference solver
                 .py:451-482): V scattered into the owner layout, the
                 projector's V'x one psum (reference ProjectedOperator
                 over distributed multivectors,
                 src/HYMLS_DeflatedSolver.cpp:159-245)."""
                 pv = dist.prepare(self.op.vals)
-                fac_st = dist.stack_factors(
-                    self.precond._prune_factors(self.precond.factors))
+                fac_st = dist.stack_factors(self.precond.factors.pruned)
                 V_l = dist.scatter_cols(V)
 
                 def proj(x):
@@ -487,7 +479,7 @@ class Solver:
 
         bord_fn = self.precond.apply_bordered_fn
 
-        def solve(factors, dplans, V, b):
+        def solve(fac, V, b):
             Vb, Wb, Cb = self._border
             pvals = self.op.prepare(self.op.vals)
 
@@ -503,8 +495,8 @@ class Solver:
                     Wb.T @ x + Cb @ sb])
 
             def prec(z):
-                return torch.cat(bord_fn(factors, dplans, z[..., :n],
-                                         z[..., n:]), dim=-1)
+                return torch.cat(bord_fn(fac, z[..., :n], z[..., n:]),
+                                 dim=-1)
 
             return run(projected_operator(op, V),
                        projected_operator(prec, V), b)

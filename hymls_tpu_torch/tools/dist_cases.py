@@ -268,7 +268,7 @@ def _halo_checks(mesh, name, K, d):
     rec = {"apply_rel": float((x - x_rep).abs().max()) / scale,
            "apply_exact": bool(torch.equal(x, x_rep)),
            "per_apply": per_apply}
-    ref = app.stack_factors(P._prune_factors(P.factors))
+    ref = app.stack_factors(P.factors.pruned)
     dc = DistributedCompute(P, mesh)
     mesh.reset_counters()
     got = dc.compute(torch.as_tensor(K.data, device=mesh.device))
@@ -372,11 +372,11 @@ def _sharded_apply_check(mesh, name, K, d):
                         device=mesh.device)
     x_rep = P.apply_inverse(b)
     sapply = P.sharded_sapply_fn(mesh)
-    factors = P.apply_factors
-    sapply(factors, P._aplans, b)       # cuts this rank's factor slabs
+    fac = P.factors
+    sapply(fac, b)                      # cuts this rank's factor slabs
     _sync(mesh)
     mesh.reset_counters()
-    x = sapply(factors, P._aplans, b)
+    x = sapply(fac, b)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     design = P._structured.sharded_apply_fn(mesh)

@@ -265,7 +265,7 @@ def dist_compute(mesh, cases):
         P = Preconditioner(K, params, testvector=create_testvector(params, K),
                            dtype=dtype, device=mesh.device).compute()
         app = make_halo_apply(P, mesh)
-        ref = app.stack_factors(P._prune_factors(P.factors))
+        ref = app.stack_factors(P.factors.pruned)
         dc = DistributedCompute(P, mesh)
         mesh.reset_counters()
         got = dc.compute(torch.as_tensor(K.tocsr().data, device=mesh.device))
@@ -416,7 +416,9 @@ def mixed_params(dist, fprec=None, levels=2, structured=False):
 
 
 def _newton_step(mesh, dist, fprec, **kw):
+    """(solver, x, result, b, refinement passes) of one IR Newton step."""
     from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    from hymls_tpu_torch.utils.timings import counter_snapshot
     params = Params(mixed_params(dist, fprec, **kw))
     K = create_matrix(params)
     S = IterativeRefinementSolver(K, params,
@@ -424,8 +426,10 @@ def _newton_step(mesh, dist, fprec, **kw):
                                   device=mesh.device)
     S.compute()
     b = K @ np.random.default_rng(0).standard_normal(K.shape[0])
+    before = counter_snapshot().get("hymls.refine.passes", 0)
     res = S.newton_step(S.op64.vals, S.solver.op.vals, b)
-    return S, _np(res.x), res, b
+    passes = counter_snapshot()["hymls.refine.passes"] - before
+    return S, _np(res.x), res, b, passes
 
 
 def _record(res, x, S=None):
@@ -480,12 +484,12 @@ def dist_solves(mesh, which):
                 rec["rep"] = _record(r0, z0)
         elif name in ("newton", "newton_f64"):
             fprec = "f64" if name == "newton_f64" else None
-            S, x, res, b = _newton_step(mesh, True, fprec)
-            rec["dist"] = dict(_record(res, x, S), b=b,
+            S, x, res, b, passes = _newton_step(mesh, True, fprec)
+            rec["dist"] = dict(_record(res, x, S), b=b, passes=passes,
                                dcompute=S.solver._dist.dcompute is not None)
             if rank0:
-                _, x0, r0, _ = _newton_step(mesh, False, fprec)
-                rec["rep"] = _record(r0, x0)
+                _, x0, r0, _, p0 = _newton_step(mesh, False, fprec)
+                rec["rep"] = dict(_record(r0, x0), passes=p0)
         elif name == "bgrid":
             # configs/stokes_L2.xml at 8^3 with the B-grid transform: not
             # distributed (the reference's distributed solve returns NaN
@@ -658,7 +662,7 @@ def sharded_apply(mesh, name):
     x_rep = P.apply_inverse(b)
     sapply = P.sharded_sapply_fn(mesh)
     mesh.reset_counters()
-    x = sapply(P.apply_factors, P._aplans, b)
+    x = sapply(P.factors, b)
     counters = {k: (dict(v) if isinstance(v, dict) else v)
                 for k, v in mesh.counters.items()}
     design = P._structured.sharded_apply_fn(mesh)
@@ -669,7 +673,7 @@ def sharded_apply(mesh, name):
                      for sl in design.slabs],
            "traffic": design.traffic(x.element_size())}
     if mesh.rank == 0:
-        rec["sfactors"] = _np_tree(P.apply_factors)
+        rec["sfactors"] = _np_tree(P.factors.tree)
     return rec
 
 

@@ -3,6 +3,7 @@ JAX package on the CPU: both preconditioners from the same `Params`
 dict, matrix and test vector, and the comparisons the ROADMAP defines
 (identical plans; factors to 1e-10 relative in f64; equal M^{-1} b)."""
 import contextlib
+import dataclasses
 import os
 import shutil
 import time
@@ -14,7 +15,7 @@ import torch
 
 import hymls_tpu as H
 import hymls_tpu_torch as T
-from hymls_tpu_torch.convert import plans_from_numpy
+from hymls_tpu_torch.convert import factors_from_numpy, plans_from_numpy
 from hymls_tpu_torch.stencils import create_matrix, create_testvector
 
 LEVEL_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
@@ -91,6 +92,46 @@ def np_tree(t):
     return np.asarray(t)
 
 
+# The JAX reference's device trees, read in one place.  The port holds a
+# factorization's views in one `Factors` value; the reference keeps them
+# in separate fields of its preconditioner.
+
+def ref_factor_plans(Pj):
+    """The reference's factorization plans, one dict per level."""
+    return Pj._dplans
+
+
+def ref_generic(Pj):
+    """(pruned generic factor tree, generic apply plans) of the
+    reference."""
+    return Pj._prune_factors(Pj._factors), Pj._aplans_gen
+
+
+def ref_repack(Pj):
+    """The reference's structured repack."""
+    return Pj._sfactors
+
+
+def ref_apply(Pj):
+    """b -> the reference's M^{-1} b on its current factors, with the
+    program it picked."""
+    fn, fac, plans = Pj.apply_inverse_fn()
+    return lambda b: fn(fac, plans, b)
+
+
+def on_ref_factors(Pt, Pj, plans=None):
+    """The reference's pruned generic factors and generic apply plans
+    (or its `plans`) carried into the port as one `Factors`
+    value: `Pt.apply_fn` on it runs the port's generic apply on the
+    reference's own factors and plans."""
+    factors, aplans = ref_generic(Pj)
+    aplans, _ = plans_from_numpy(np_tree(aplans if plans is None else plans),
+                                 device="cpu")
+    return dataclasses.replace(
+        Pt.factors_of(factors_from_numpy(np_tree(factors), device="cpu")),
+        plans=aplans)
+
+
 def problem(d, make_K=None):
     """(K, test vector) of the parameter dict `d`."""
     K = (make_K() if make_K else create_matrix(T.Params(d))).tocsr()
@@ -116,17 +157,17 @@ def assert_plans_identical(Pj, Pt):
     """Every level's device plan (the split maps included, where both
     carry them), and the coarse plan where there is one."""
     levels, coarse = plans_from_numpy(
-        np_tree(Pj._dplans),
+        np_tree(ref_factor_plans(Pj)),
         None if Pj.coarse_plan is None else np_tree(Pj._dcoarse),
         device="cpu")
-    assert len(levels) == len(Pt._dplans)
-    for a, b in zip(levels, Pt._dplans):
+    assert len(levels) == len(Pt.factor_plans)
+    for a, b in zip(levels, Pt.factor_plans):
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k].to(b[k].dtype), b[k]), k
-    assert (coarse is None) == (Pt._dcoarse is None)
+    assert (coarse is None) == (Pt.max_level == 0)
     for k in coarse or ():
-        assert torch.equal(coarse[k], Pt._dcoarse[k]), k
+        assert torch.equal(coarse[k], Pt.extra_plan[k]), k
     assert [p.apply_ot for p in Pj.plans] == [p.apply_ot for p in Pt.plans]
 
 
@@ -134,7 +175,7 @@ def assert_factors_agree(Pj, Pt, tol=1e-10, scale=None):
     """Per-level factors and the coarse factor, to `tol` relative to
     each tensor's own maximum, or to `scale` where that is larger
     (assembled values that are zero up to rounding)."""
-    fj, ft = Pj._factors, Pt._factors
+    fj, ft = Pj._factors, Pt.factors.full
     assert len(fj["levels"]) == len(ft["levels"])
     for lev, (a, b) in enumerate(zip(fj["levels"], ft["levels"])):
         assert set(a) == set(b)

@@ -107,13 +107,14 @@ def with_fake(P, monkeypatch, fail=False):
     return graphs, fake
 
 
-def through(P, graphs, b):
-    """One apply through the cache, as apply_fn makes it on a card."""
-    return graphs(P._apply_body, P.apply_factors, P._aplans, b)
+def through(P, graphs, b, fac=None):
+    """One apply of `fac` (by default P's current factorization) through
+    the cache, as apply_fn makes it on a card."""
+    return graphs(P._apply_body, P.factors if fac is None else fac, b)
 
 
-def eager(P, b):
-    return P._apply_eager(P.apply_factors, P._aplans, b)
+def eager(P, b, fac=None):
+    return P._apply_eager(P.factors if fac is None else fac, b)
 
 
 def test_cpu_apply_is_eager_and_counted(built, counters, monkeypatch):
@@ -124,8 +125,8 @@ def test_cpu_apply_is_eager_and_counted(built, counters, monkeypatch):
 
     monkeypatch.setattr(ApplyGraphs, "__call__", refuse)
     b = vectors(K.shape[0])
-    x = P.apply_fn(P.apply_factors, P._aplans, b)
-    B = P.apply_fn(P.apply_factors, P._aplans, vectors(K.shape[0], 3))
+    x = P.apply_fn(P.factors, b)
+    B = P.apply_fn(P.factors, vectors(K.shape[0], 3))
     assert x.shape == b.shape and B.shape == (3, K.shape[0])
     program = "structured" if P._structured is not None else "generic"
     assert dict(counters) == {"hymls.apply.eager": 2,
@@ -192,7 +193,7 @@ def test_compute_drops_the_graph_and_recaptures():
     P._graphs = graphs = ApplyGraphs(fake)
     b = vectors(K.shape[0], seed=5)
     x1 = through(P, graphs, b)
-    old_tree = weakref.ref(P.apply_factors["levels"][0]["A11"])
+    old_tree = weakref.ref(P.factors.tree["levels"][0]["A11"])
     assert fake.captures == 1
     K2 = K.copy()
     K2.data = K2.data * (1.0 + 0.25 * np.random.default_rng(2).random(
@@ -205,6 +206,33 @@ def test_compute_drops_the_graph_and_recaptures():
     assert fake.graphs[0]() is None and old_tree() is None
     assert graphs._retired == []
     assert torch.equal(x2, eager(P, b)) and not torch.equal(x1, x2)
+
+
+def test_each_factorize_is_a_new_value_and_recaptures(built, counters,
+                                                      monkeypatch):
+    """The cache knows a factorization by its `Factors` value: a new
+    `factorize`, of the same values even, drops the graph and the next
+    apply captures anew; so does a new value around the same tensors
+    (`factors_of`).  Each value applies as the eager apply does."""
+    P, K = built
+    graphs, fake = with_fake(P, monkeypatch)
+    b = vectors(K.shape[0], seed=13)
+    fac = P.factorize(P.K.data)
+    assert graphs._tree is None and not graphs._graphs
+    x = through(P, graphs, b, fac)
+    assert through(P, graphs, b, fac).equal(x)
+    assert (fake.captures, fake.replays) == (1, 2)
+    assert graphs._tree[0] is fac
+    again = P.factorize(P.K.data)
+    assert again is not fac and not graphs._graphs
+    assert torch.equal(through(P, graphs, b, again), x)
+    assert (fake.captures, fake.replays) == (2, 3)
+    wrapped = P.factors_of(fac.full)
+    assert not wrapped.structured
+    y = through(P, graphs, b, wrapped)
+    assert (fake.captures, fake.replays) == (3, 4)
+    assert torch.equal(y, eager(P, b, wrapped))
+    assert counters["hymls.compute.calls"] == 2
 
 
 def test_set_border_drops_the_graphs(counters, monkeypatch):
@@ -221,7 +249,7 @@ def test_in_place_change_to_a_factor_recaptures(built, counters,
     graphs, fake = with_fake(P, monkeypatch)
     b = vectors(K.shape[0], seed=7)
     x0 = through(P, graphs, b)
-    leaf = P.apply_factors["coarse"]
+    leaf = P.factors.tree["coarse"]
     leaf = leaf["inv"] if "inv" in leaf else leaf["lu"]
     try:
         leaf.mul_(2.0)                  # bumps the tensor's _version

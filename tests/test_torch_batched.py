@@ -49,7 +49,8 @@ from hymls_tpu_torch.solvers import krylov as tkrylov
 from hymls_tpu_torch.stencils import (create_nullspace, create_testvector,
                                       laplace2d_neumann, stokes3d)
 
-from _torch_parity import aniso_laplace, laplace_cfg, pair, problem, rel
+from _torch_parity import (aniso_laplace, laplace_cfg, pair, problem,
+                           ref_apply, ref_generic, rel)
 from test_torch_bgrid import _cfg as _bgrid_cfg
 
 BLOCK_VS_COLUMNS = 1e-13   # batched GEMMs against GEMVs
@@ -190,23 +191,22 @@ def test_block_apply(name):
     if name == "bgrid_3d":
         assert Pt._bgrid is not None
     if not m:
-        fn, fac, plans = Pt.apply_inverse_fn()
-        Y = fn(fac, plans, torch.as_tensor(X))
-        cols = torch.stack([fn(fac, plans, torch.as_tensor(X[j]))
+        fac = Pt.factors
+        Y = Pt.apply_fn(fac, torch.as_tensor(X))
+        cols = torch.stack([Pt.apply_fn(fac, torch.as_tensor(X[j]))
                             for j in range(b)])
-        jfn, jfac, jplans = Pj.apply_inverse_fn()
-        Yj = jax.vmap(lambda z: jfn(jfac, jplans, z))(jnp.asarray(X))
+        Yj = jax.vmap(ref_apply(Pj))(jnp.asarray(X))
     else:
         Tm = _rows(m, b, 3)
-        fac, plans = Pt.apply_factors, Pt._aplans_gen
-        Y = torch.cat(Pt.apply_bordered_fn(fac, plans, torch.as_tensor(X),
+        fac = Pt.factors
+        Y = torch.cat(Pt.apply_bordered_fn(fac, torch.as_tensor(X),
                                            torch.as_tensor(Tm)), dim=1)
         cols = torch.stack([torch.cat(Pt.apply_bordered_fn(
-            fac, plans, torch.as_tensor(X[j]), torch.as_tensor(Tm[j])))
+            fac, torch.as_tensor(X[j]), torch.as_tensor(Tm[j])))
             for j in range(b)])
-        jfac = Pj._prune_factors(Pj._factors)
+        jfac, jplans = ref_generic(Pj)
         Yj = jnp.concatenate(jax.vmap(
-            lambda z, t: Pj._apply_bordered_pure(jfac, Pj._aplans_gen, z, t))(
+            lambda z, t: Pj._apply_bordered_pure(jfac, jplans, z, t))(
                 jnp.asarray(X), jnp.asarray(Tm)), axis=1)
     assert Y.shape == (b, n + m) and Y.is_contiguous()
     assert rel(cols.numpy(), Y.numpy()) <= BLOCK_VS_COLUMNS
@@ -218,9 +218,9 @@ def test_structured_program_block_apply():
     _Pj, Pt, n, _m = _apply_pair("structured")
     prog = Pt._structured
     X = torch.as_tensor(_rows(n, 3, 5))
-    Y = prog.apply(Pt.apply_factors, X)
+    Y = prog.apply(Pt.factors.tree, X)
     for j in range(3):
-        assert rel(prog.apply(Pt.apply_factors, X[j]).numpy(),
+        assert rel(prog.apply(Pt.factors.tree, X[j]).numpy(),
                    Y[j].numpy()) <= BLOCK_VS_COLUMNS
 
 
@@ -244,10 +244,10 @@ def test_gmres_batched_matches_vmapped_gmres():
     Rhs[5] *= 1e-6
     Rhs -= (Rhs @ V) @ V.T
 
-    jfn, jfac, jplans = Pj.apply_inverse_fn()
+    japply = ref_apply(Pj)
     Kj = jnp.asarray(K.toarray())
     Vj = jnp.asarray(V)
-    tfn, tfac, tplans = Pt.apply_inverse_fn()
+    tfac = Pt.factors
     Kop = tspmv.DiaOperator(K, device="cpu")
     bands = Kop.prepare(Kop.vals)
     Vt = torch.as_tensor(V)
@@ -259,13 +259,13 @@ def test_gmres_batched_matches_vmapped_gmres():
         def jsolve(b):
             return jkrylov.gmres(
                 lambda x: jproj(Kj @ jproj(x)), b, jnp.zeros_like(b),
-                lambda x: jproj(jfn(jfac, jplans, jproj(x))),
+                lambda x: jproj(japply(jproj(x))),
                 tol=1e-10, maxiter=100, left=left)
         rj = jax.vmap(jsolve)(jnp.asarray(Rhs))
         op = projected_operator(
             lambda X: Kop.matvec_prepared(bands, X), Vt)
         prec = projected_operator(
-            lambda X: tfn(tfac, tplans, X), Vt)
+            lambda X: Pt.apply_fn(tfac, X), Vt)
         B = torch.as_tensor(Rhs)
         rt = tkrylov.gmres_batched(op, B, torch.zeros_like(B), prec,
                                    tol=1e-10, maxiter=100, left=left)
@@ -319,9 +319,9 @@ def test_setup_makes_block_calls(monkeypatch):
     matmat, matvec = tspmv.dia_matmat_packed, tspmv.dia_matvec_packed
     gmres_batched = tkrylov.gmres_batched
 
-    def count_apply(self, factors, aplans, b):
+    def count_apply(self, fac, b):
         calls["apply"].append(tuple(b.shape))
-        return apply_fn(self, factors, aplans, b)
+        return apply_fn(self, fac, b)
 
     def count_matmat(bands, X, offs):
         calls["matmat"].append(X.shape[0])
@@ -416,8 +416,8 @@ def test_cuda_block_apply(cuda_device, structured):
     K, tv = problem(d)
     P = T.Preconditioner(K, T.Params(d), testvector=tv,
                          device=cuda_device).compute()
-    fn, fac, plans = P.apply_inverse_fn()
+    fac = P.factors
     X = torch.as_tensor(_rows(K.shape[0], 6, 2), device=cuda_device)
-    Y = fn(fac, plans, X)
-    cols = torch.stack([fn(fac, plans, X[j]) for j in range(6)])
+    Y = P.apply_fn(fac, X)
+    cols = torch.stack([P.apply_fn(fac, X[j]) for j in range(6)])
     assert rel(cols.cpu().numpy(), Y.cpu().numpy()) <= BLOCK_VS_COLUMNS

@@ -111,14 +111,14 @@ def _rel(ref, got):
 @pytest.mark.parametrize("name", list(CASES))
 def test_border_factors_match_reference(name):
     K, _, (Pj, *_), (Pt, *_) = _solved(name)
-    assert len(Pt._factors["levels"]) == len(Pj._factors["levels"])
+    assert len(Pt.factors.full["levels"]) == len(Pj._factors["levels"])
     for lev, (fj, ft) in enumerate(zip(Pj._factors["levels"],
-                                       Pt._factors["levels"])):
+                                       Pt.factors.full["levels"])):
         for key in BORDER_KEYS:
             assert _rel(fj["border"][key], ft["border"][key]) <= 1e-10, \
                 (lev, key)
     m = Pt._border[0].shape[1]
-    cj, ct = Pj._factors["coarse"]["inv"], Pt._factors["coarse"]["inv"]
+    cj, ct = Pj._factors["coarse"]["inv"], Pt.factors.full["coarse"]["inv"]
     assert ct.shape[0] == Pt.coarse_plan.n + m
     assert _rel(cj, ct) <= 1e-10
 
@@ -158,16 +158,17 @@ def test_structured_apply_is_inactive_while_bordered():
     S = T.Solver(K, P, T.Params(d), device="cpu")
     S.set_border(ns)
     assert not P._structured_active
-    assert P._aplans is not P._structured.consts
-    assert "border" in P.apply_factors["levels"][0]
     x, res = S.apply_inverse(b)
-    assert res.converged and P._sfactors is None
+    fac = P.factors
+    assert res.converged and not fac.structured
+    assert fac.plans is not P._structured.consts
+    assert "border" in fac.tree["levels"][0]
 
     S.set_border(None)
     assert S._border is None and P._border is None
-    assert P._structured_active and P._aplans is P._structured.consts
+    assert P._structured_active
     y = P.apply_inverse(b)
-    assert P._sfactors is not None
+    assert P.factors.structured and P.factors.plans is P._structured.consts
     assert _rel(plain.apply_inverse(b), y) <= 1e-12
     x2, res2 = S.apply_inverse(b)
     assert res2.converged and S._border_coeffs is None

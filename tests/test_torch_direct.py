@@ -28,14 +28,13 @@ import torch
 
 import hymls_tpu as H
 import hymls_tpu_torch as T
-from hymls_tpu_torch.convert import (plans_from_numpy, factors_from_numpy,
-                                     direct_plan_from_numpy)
+from hymls_tpu_torch.convert import direct_plan_from_numpy
 from hymls_tpu_torch.core.preconditioner import DIRECT_FIELDS
 from hymls_tpu_torch.stencils import create_nullspace
 
 from _torch_parity import (rel, np_tree, problem, pair,
                            assert_plans_identical, assert_factors_agree,
-                           solve_both, relres)
+                           on_ref_factors, solve_both, relres)
 
 
 def _cfg(eqn, sep, **prec):
@@ -94,9 +93,9 @@ def test_direct_plans_identical(name):
     assert Pt.max_level == 0 and Pt.coarse_plan is None
     assert_plans_identical(Pj, Pt)
     ref = direct_plan_from_numpy(np_tree(Pj._ddirect), device="cpu")
-    assert set(ref) == set(DIRECT_FIELDS) == set(Pt._extra_plan)
+    assert set(ref) == set(DIRECT_FIELDS) == set(Pt.extra_plan)
     for k in ref:
-        assert torch.equal(ref[k], Pt._extra_plan[k]), k
+        assert torch.equal(ref[k], Pt.extra_plan[k]), k
     assert Pt._structured is None
     assert Pt._structured_reason == "direct-SC mode"
 
@@ -104,9 +103,9 @@ def test_direct_plans_identical(name):
 @pytest.mark.parametrize("name", NAMES)
 def test_direct_factors_match_reference(name):
     _, _, _, Pj, Pt = _built(name)
-    assert set(Pt._factors["levels"][0]) == {"A11inv", "G", "A21"}
+    assert set(Pt.factors.full["levels"][0]) == {"A11inv", "G", "A21"}
     n_sep = Pt.plans[0].n_sep
-    assert tuple(Pt._factors["coarse"]["inv"].shape) == (n_sep, n_sep)
+    assert tuple(Pt.factors.full["coarse"]["inv"].shape) == (n_sep, n_sep)
     assert_factors_agree(Pj, Pt)
 
 
@@ -131,7 +130,7 @@ def test_direct_gmres_needs_no_iterations_to_speak_of(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_direct_recompute_is_exact(name):
-    """recompute() at L = 0 is compute_fn(prev=): the warm inverses of
+    """recompute() at L = 0 is factorize(prev=): the warm inverses of
     new values are still those of an exact solve."""
     d, K, tv, _, _ = _built(name)
     Pj, Pt = pair(d, K, tv)
@@ -155,11 +154,11 @@ def test_direct_bordered_is_the_exact_solve(name):
     Pj.compute()
     Pt.compute()
     n_sep = Pt.plans[0].n_sep
-    assert tuple(Pt._factors["coarse"]["inv"].shape) == (n_sep + m,
+    assert tuple(Pt.factors.full["coarse"]["inv"].shape) == (n_sep + m,
                                                          n_sep + m)
     for key in ("Q1", "W1"):
         assert rel(Pj._factors["border"][key],
-                   Pt._factors["border"][key].numpy()) <= 1e-10, key
+                   Pt.factors.full["border"][key].numpy()) <= 1e-10, key
     assert_factors_agree(Pj, Pt)
 
     rng = np.random.default_rng(2)
@@ -200,19 +199,17 @@ def test_direct_apply_on_reference_factors(name, bordered):
         Pj.set_border(V, None, C)
         Pt.set_border(V, None, C)
     Pj.compute()
-    aplans, _ = plans_from_numpy(np_tree(Pj._aplans_gen), device="cpu")
-    factors = factors_from_numpy(np_tree(Pj._prune_factors(Pj._factors)),
-                                 device="cpu")
-    assert ("border" in factors) == bordered
+    fac = on_ref_factors(Pt, Pj)
+    assert ("border" in fac.tree) == bordered
     rng = np.random.default_rng(4)
     b = rng.standard_normal(K.shape[0])
     if bordered:
         t = rng.standard_normal(V.shape[1])
         xj, sj = Pj.apply_inverse_bordered(b, t)
-        xt, st = Pt.apply_bordered_fn(factors, aplans, torch.as_tensor(b),
+        xt, st = Pt.apply_bordered_fn(fac, torch.as_tensor(b),
                                       torch.as_tensor(t))
         assert rel(sj, st.numpy()) <= 1e-12
     else:
         xj = Pj.apply_inverse(b)
-        xt = Pt.apply_fn(factors, aplans, torch.as_tensor(b))
+        xt = Pt.apply_fn(fac, torch.as_tensor(b))
     assert rel(xj, xt.numpy()) <= 1e-12

@@ -271,6 +271,24 @@ def test_dist_newton_step_four_ranks(four, fprec):
         four["gmres_l1"]["rep"]["iters"]
 
 
+@pytest.mark.parametrize("fprec", [None, "f64"])
+def test_dist_newton_step_takes_the_replicated_passes(three_ranks, fprec):
+    """The one refinement loop in its two layouts: the owner-sharded
+    Newton step on 3 ranks takes, on every rank, as many f64 refinement
+    passes as the replicated step, each to the f64 gate of
+    `_check_newton`."""
+    name = "newton_f64" if fprec else "newton"
+    r = three_ranks[0][name]["rep"]
+    assert r["passes"] >= 1
+    for o in three_ranks:
+        assert o[name]["dist"]["passes"] == r["passes"]
+    K = TP.problem(D.mixed_params(True, fprec))[0]
+    b = three_ranks[0][name]["dist"]["b"]
+    assert TP.relres(K, r["x"], b) <= 1e-10
+    assert TP.relres(K, three_ranks[0][name]["dist"]["x"], b) <= \
+        max(TP.relres(K, r["x"], b) * 1.5, 1e-10)
+
+
 def test_unshardable_warns_and_solves_replicated(three):
     """The direct-Schur mode (L = 0) has no levels to own: both
     packages warn and solve replicated."""

@@ -33,12 +33,12 @@ import torch
 import hymls_tpu as H
 import hymls_tpu_torch as T
 from hymls_tpu.solvers.mixed import IterativeRefinementSolver as JIR
-from hymls_tpu_torch.convert import plans_from_numpy, factors_from_numpy
 from hymls_tpu_torch.core.preconditioner import (SPLIT_FIELDS,
                                                  _compute_level)
 from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver as TIR
 
-from _torch_parity import (rel, np_tree, problem, pair, relres,
+from _torch_parity import (rel, problem, pair, relres, on_ref_factors,
+                           ref_factor_plans, ref_generic,
                            assert_plans_identical, LEVEL_KEYS)
 
 MODES = ["Full f64", "Vsum f64"]
@@ -86,7 +86,7 @@ def test_upcast_plans_identical(mode):
     assert Pt._upcast and Pt.factor_dtype == torch.float64
     assert Pt._split_assembly == Pj._split_assembly == (mode == "Vsum f64")
     assert_plans_identical(Pj, Pt)
-    for dp, ap in zip(Pt._dplans, Pt._aplans_gen):
+    for dp, ap in zip(Pt.factor_plans, Pt.generic_plans):
         assert all((k in dp) == (mode == "Vsum f64") for k in SPLIT_FIELDS)
         assert dp["Q"].dtype == dp["w_vals"].dtype == torch.float64
         assert ap["w_vals"].dtype == torch.float32
@@ -97,14 +97,14 @@ def test_upcast_factors_match_reference(mode):
     Pj, Pt = _built(mode)
     f64 = _ref64()._factors
     for lev, (a, b, r) in enumerate(zip(Pj._factors["levels"],
-                                        Pt._factors["levels"],
+                                        Pt.factors.full["levels"],
                                         f64["levels"])):
         for key in LEVEL_KEYS:
             assert b[key].dtype == torch.float32
             _close_to_f64(r[key], a[key], b[key].numpy(), f"{lev} {key}")
-    assert Pt._factors["coarse"]["inv"].dtype == torch.float32
+    assert Pt.factors.full["coarse"]["inv"].dtype == torch.float32
     _close_to_f64(f64["coarse"]["inv"], Pj._factors["coarse"]["inv"],
-                  Pt._factors["coarse"]["inv"].numpy(), "coarse")
+                  Pt.factors.full["coarse"]["inv"].numpy(), "coarse")
 
 
 def test_upcast_apply_beats_the_f32_chain():
@@ -134,7 +134,7 @@ def test_vsum_split_next_level_values():
     outs = {}
     for mode in MODES:
         Pt = _built(mode)[1]
-        outs[mode] = _compute_level(vals, Pt._dplans[0],
+        outs[mode] = _compute_level(vals, Pt.factor_plans[0],
                                     apply_ot=Pt.plans[0].apply_ot,
                                     store_dtype=torch.float32)
     (ff, nf), (fs, ns_) = outs["Full f64"], outs["Vsum f64"]
@@ -145,7 +145,8 @@ def test_vsum_split_next_level_values():
     # and against the reference's split chain
     from hymls_tpu.core.preconditioner import _compute_level as ref_level
     Pj = _built("Vsum f64")[0]
-    _, nj = ref_level(jnp.asarray(K.data, jnp.float64), Pj._dplans[0],
+    _, nj = ref_level(jnp.asarray(K.data, jnp.float64),
+                      ref_factor_plans(Pj)[0],
                       (Pj.plans[0].n_sep, Pj.plans[0].nnz_sc),
                       apply_ot=Pj.plans[0].apply_ot,
                       store_dtype=jnp.float32)
@@ -157,7 +158,7 @@ def test_vsum_split_levels_option():
     K, tv = _matrix()
     d = _cfg("f64", "Vsum f64", **{"Vsum f64 Levels": "1"})
     Pj, Pt = pair(d, K, tv, dtype=torch.float32, compute=False)
-    assert ["vsum_col" in dp for dp in Pt._dplans] == [False, True]
+    assert ["vsum_col" in dp for dp in Pt.factor_plans] == [False, True]
     assert_plans_identical(Pj, Pt)
 
 
@@ -165,21 +166,17 @@ def test_vsum_split_levels_option():
 def test_upcast_apply_on_reference_factors(mode):
     Pj, Pt = _built(mode)
     K, _ = _matrix()
-    aplans, _ = plans_from_numpy(np_tree(Pj._aplans_gen), device="cpu")
-    factors = factors_from_numpy(np_tree(Pj._prune_factors(Pj._factors)),
-                                 device="cpu")
-    assert factors["levels"][0]["A11inv"].dtype == torch.float32
-    assert aplans[0]["w_vals"].dtype == torch.float32
+    fac = on_ref_factors(Pt, Pj)
+    assert fac.tree["levels"][0]["A11inv"].dtype == torch.float32
+    assert fac.plans[0]["w_vals"].dtype == torch.float32
     b = np.random.default_rng(4).standard_normal(K.shape[0])
     b32 = torch.as_tensor(b, dtype=torch.float32)
-    yt = Pt.apply_fn(factors, aplans, b32)
+    yt = Pt.apply_fn(fac, b32)
     assert yt.dtype == torch.float32
     assert rel(Pj.apply_inverse(b), yt.numpy()) <= 1e-4
     # in f64 vectors the f32 factors promote and the apply is exact
-    yj = Pj._apply_jit(Pj._prune_factors(Pj._factors), Pj._aplans_gen,
-                       jnp.asarray(b))
-    assert rel(yj, Pt.apply_fn(factors, aplans,
-                               torch.as_tensor(b)).numpy()) <= 1e-12
+    yj = Pj._apply_jit(*ref_generic(Pj), jnp.asarray(b))
+    assert rel(yj, Pt.apply_fn(fac, torch.as_tensor(b)).numpy()) <= 1e-12
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -204,7 +201,8 @@ def test_ir_solver_counts_match_reference(mode):
     K2.data = K.data * (1.0 + 1e-6)
     Sj.precond.recompute(K2)
     St.precond.recompute(K2)
-    assert St.precond._factors["levels"][0]["A11inv"].dtype == torch.float32
+    assert St.precond.factors.full["levels"][0]["A11inv"].dtype == \
+        torch.float32
     y = np.random.default_rng(5).standard_normal(K.shape[0])
     assert rel(Sj.precond.apply_inverse(y),
                St.precond.apply_inverse(y).numpy()) <= 1e-4
@@ -228,10 +226,10 @@ def test_upcast_direct_schur_matches_reference():
     d64["Preconditioner"]["Separator Length"] = 8
     f64 = H.Preconditioner(K, H.Params(d64), testvector=tv).compute()._factors
     for key in ("A11inv", "G", "A21"):
-        b = Pt._factors["levels"][0][key]
+        b = Pt.factors.full["levels"][0][key]
         assert b.dtype == torch.float32
         _close_to_f64(f64["levels"][0][key], Pj._factors["levels"][0][key],
                       b.numpy(), key)
-    assert Pt._factors["coarse"]["inv"].dtype == torch.float32
+    assert Pt.factors.full["coarse"]["inv"].dtype == torch.float32
     _close_to_f64(f64["coarse"]["inv"], Pj._factors["coarse"]["inv"],
-                  Pt._factors["coarse"]["inv"].numpy(), "coarse")
+                  Pt.factors.full["coarse"]["inv"].numpy(), "coarse")

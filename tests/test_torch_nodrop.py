@@ -27,10 +27,9 @@ import torch
 
 import hymls_tpu as H
 import hymls_tpu_torch as T
-from hymls_tpu_torch.convert import plans_from_numpy, factors_from_numpy
 from hymls_tpu_torch.stencils import create_nullspace
 
-from _torch_parity import (rel, np_tree, problem, pair, relres,
+from _torch_parity import (rel, problem, pair, relres, on_ref_factors,
                            assert_plans_identical, assert_factors_agree,
                            solve_both)
 
@@ -93,7 +92,8 @@ def test_nodrop_auto_runs_the_generic_apply(name):
     assert Pt._structured is None and not Pt._structured_active
     assert Pt._structured_reason == Pj._structured_reason == \
         "Apply Dropping == false"
-    assert Pt._aplans is Pt._aplans_gen
+    assert not Pt.factors.structured
+    assert Pt.factors.plans is Pt.generic_plans
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -101,7 +101,7 @@ def test_nodrop_factors_match_reference(name):
     _, K, _, Pj, Pt = _built(name)
     assert_factors_agree(Pj, Pt, scale=float(np.abs(K.data).max()))
     # no reflectors and no non-Vsum blocks without dropping
-    for f in Pt._factors["levels"]:
+    for f in Pt.factors.full["levels"]:
         assert f["blkinv"].shape[0] == 0
 
 
@@ -112,10 +112,7 @@ def test_nodrop_apply_matches_reference(name):
     yj = np.asarray(Pj.apply_inverse(b))
     _assert_applies_agree(K, yj, Pt.apply_inverse(b).numpy())
     # the port's V-cycle on the reference's own plans and factors
-    aplans, _ = plans_from_numpy(np_tree(Pj._aplans_gen), device="cpu")
-    factors = factors_from_numpy(np_tree(Pj._prune_factors(Pj._factors)),
-                                 device="cpu")
-    yc = Pt.apply_fn(factors, aplans, torch.as_tensor(b))
+    yc = Pt.apply_fn(on_ref_factors(Pt, Pj), torch.as_tensor(b))
     _assert_applies_agree(K, yj, yc.numpy())
 
 
@@ -161,11 +158,11 @@ def test_nodrop_bordered_matches_reference():
     St.set_border(ns)
     Pj.compute()
     Pt.compute()
-    for fj, ft in zip(Pj._factors["levels"], Pt._factors["levels"]):
+    for fj, ft in zip(Pj._factors["levels"], Pt.factors.full["levels"]):
         for key in ("Q1", "W1", "bW"):
             assert rel(fj["border"][key], ft["border"][key].numpy()) <= 1e-10
     assert rel(Pj._factors["coarse"]["inv"],
-               Pt._factors["coarse"]["inv"].numpy()) <= 1e-10
+               Pt.factors.full["coarse"]["inv"].numpy()) <= 1e-10
     rng = np.random.default_rng(11)
     b, t = rng.standard_normal(K.shape[0]), rng.standard_normal(ns.shape[1])
     xj, sj = Pj.apply_inverse_bordered(b, t)

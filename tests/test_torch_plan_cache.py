@@ -69,13 +69,13 @@ def test_warm_load_builds_nothing_and_matches(cache_dir, monkeypatch):
     assert warm.plan_from_cache
     assert warm.plan_seconds < cold.plan_seconds
 
-    for a, b in zip(cold._dplans, warm._dplans):
+    for a, b in zip(cold.factor_plans, warm.factor_plans):
         assert a.keys() == b.keys()
         assert all(torch.equal(a[k], b[k]) for k in a)
     assert [p.apply_ot for p in cold.plans] == \
         [p.apply_ot for p in warm.plans]
     assert all(torch.equal(a, b) for a, b in
-               zip(_leaves(cold._factors), _leaves(warm._factors)))
+               zip(_leaves(cold.factors.full), _leaves(warm.factors.full)))
     assert_plans_identical(Pj, warm)
     assert_factors_agree(Pj, warm, scale=float(np.abs(K.data).max()))
     b = K @ np.random.default_rng(3).standard_normal(K.shape[0])

@@ -26,9 +26,11 @@ import torch
 
 import hymls_tpu as H
 import hymls_tpu_torch as T
-from hymls_tpu_torch.convert import plans_from_numpy, factors_from_numpy
+from hymls_tpu_torch.convert import plans_from_numpy
 from hymls_tpu_torch.stencils import create_matrix, create_testvector
 from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+from _torch_parity import on_ref_factors, ref_factor_plans
 
 FACTOR_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
 
@@ -116,7 +118,7 @@ def test_factors_match_reference(name, dtype):
     K, Pj, Pt = _pair(name, dtype)
     _, Pj64, _ = _pair(name, torch.float64) if dtype == torch.float32 \
         else (K, Pj, Pt)
-    fj, ft, f64 = Pj._factors, Pt._factors, Pj64._factors
+    fj, ft, f64 = Pj._factors, Pt.factors.full, Pj64._factors
     assert len(fj["levels"]) == len(ft["levels"])
     for lev, (a, b, t) in enumerate(zip(fj["levels"], ft["levels"],
                                         f64["levels"])):
@@ -134,15 +136,15 @@ def test_plans_identical(name):
     d, K, tv = _problem(name)
     Pj = H.Preconditioner(K, H.Params(d), testvector=tv)
     Pt = T.Preconditioner(K, T.Params(d), testvector=tv, device="cpu")
-    levels, coarse = plans_from_numpy(_np_tree(Pj._dplans),
+    levels, coarse = plans_from_numpy(_np_tree(ref_factor_plans(Pj)),
                                       _np_tree(Pj._dcoarse), device="cpu")
-    assert len(levels) == len(Pt._dplans)
-    for a, b in zip(levels, Pt._dplans):
+    assert len(levels) == len(Pt.factor_plans)
+    for a, b in zip(levels, Pt.factor_plans):
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k], b[k]), k
     for k in coarse:
-        assert torch.equal(coarse[k], Pt._dcoarse[k]), k
+        assert torch.equal(coarse[k], Pt.extra_plan[k]), k
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -165,13 +167,10 @@ def test_apply_inverse_matches_reference(name, dtype):
 def test_apply_on_reference_factors(name):
     """The port's V-cycle on the reference's own plans and factors."""
     K, Pj, Pt = _pair(name, torch.float64)
-    dplans, _ = plans_from_numpy(_np_tree(Pj._dplans),
-                                 _np_tree(Pj._dcoarse), device="cpu")
-    factors = factors_from_numpy(_np_tree(Pj._prune_factors(Pj._factors)),
-                                 device="cpu")
+    fac = on_ref_factors(Pt, Pj, plans=ref_factor_plans(Pj))
     b = np.random.default_rng(4).standard_normal(K.shape[0])
     yj = np.asarray(Pj.apply_inverse(b))
-    yt = Pt.apply_fn(factors, dplans, torch.as_tensor(b))
+    yt = Pt.apply_fn(fac, torch.as_tensor(b))
     assert _rel(yj, yt.numpy()) <= 1e-12
 
 
@@ -180,7 +179,7 @@ def test_empty_coarse_system():
     still works and agrees with the reference."""
     K, Pj, Pt = _pair("laplace16_L2", torch.float64)
     assert Pt.coarse_plan.n == 0
-    assert tuple(Pt._factors["coarse"]["inv"].shape) == (0, 0)
+    assert tuple(Pt.factors.full["coarse"]["inv"].shape) == (0, 0)
     b = np.random.default_rng(5).standard_normal(K.shape[0])
     assert _rel(np.asarray(Pj.apply_inverse(b)),
                 Pt.apply_inverse(b).numpy()) <= 1e-10
@@ -201,11 +200,11 @@ def test_factor_precision_f64_on_an_f64_preconditioner_is_same():
     Pj = H.Preconditioner(K, H.Params(d), testvector=tv)
     assert not P._upcast and not Pj._upcast
     assert P.factor_dtype == P.dtype == torch.float64
-    for a, b in zip(plain._factors["levels"], P._factors["levels"]):
+    for a, b in zip(plain.factors.full["levels"], P.factors.full["levels"]):
         for key in FACTOR_KEYS:
             assert torch.equal(a[key], b[key]), key
-    assert torch.equal(plain._factors["coarse"]["inv"],
-                       P._factors["coarse"]["inv"])
+    assert torch.equal(plain.factors.full["coarse"]["inv"],
+                       P.factors.full["coarse"]["inv"])
 
 
 @pytest.mark.parametrize("prec", [

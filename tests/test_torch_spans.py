@@ -70,10 +70,9 @@ def solved():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         S.compute(K)
         S.solve(b)
-        block = P.apply_fn(P.apply_factors, P._aplans, B)
+        block = P.apply_fn(P.factors, B)
     delta = spans.diff(timings.counter_snapshot(), before)
-    rows = torch.stack([P.apply_fn(P.apply_factors, P._aplans, v)
-                        for v in B])
+    rows = torch.stack([P.apply_fn(P.factors, v) for v in B])
     return S, program_spans(prof), delta, block, rows
 
 

@@ -238,7 +238,7 @@ def test_plan_and_apply_counters_and_spans(structured, tmp_path,
     assert delta(loaded, built, "hymls.plan.cache_loads") == 1
     assert not P.plan_from_cache and P2.plan_from_cache
     ts = {id(t): t for t in TP._tensors(
-        (P._dplans, P._aplans_gen, P._extra_plan), [])}
+        (P.factor_plans, P.generic_plans, P.extra_plan), [])}
     nbytes = sum(t.numel() * t.element_size() for t in ts.values())
     assert delta(built, before, "hymls.plan.device_bytes") == nbytes > 0
     assert delta(loaded, built, "hymls.plan.device_bytes") == nbytes
@@ -262,7 +262,7 @@ def test_plan_and_apply_counters_and_spans(structured, tmp_path,
     before = timings.counter_snapshot()
     b = torch.ones(3, K.shape[0])
     for v in (b[0], b):
-        P.apply_fn(P.apply_factors, P._aplans, v)
+        P.apply_fn(P.factors, v)
     after = timings.counter_snapshot()
     assert delta(after, before, "hymls.apply." + mine) == 2
     assert delta(after, before, "hymls.apply." + other) == 0

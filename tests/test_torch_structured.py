@@ -34,6 +34,8 @@ from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver as TIR
 from hymls_tpu_torch.stencils import create_matrix, create_testvector
 from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
 
+from _torch_parity import ref_generic, ref_repack
+
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}
 
@@ -153,10 +155,9 @@ def test_repack_matches_reference(name):
     """The port's repack of the reference's generic factors against the
     reference's repacked factors (f64, 1e-12)."""
     _, Pj, Pt = _pair(name, torch.float64)
-    generic = factors_from_numpy(_np_tree(Pj._prune_factors(Pj._factors)),
-                                 device="cpu")
+    generic = factors_from_numpy(_np_tree(ref_generic(Pj)[0]), device="cpu")
     ours = Pt._structured.repack(generic)
-    ref = _np_tree(Pj._sfactors)
+    ref = _np_tree(ref_repack(Pj))
     assert len(ours["levels"]) == len(ref["levels"])
     for lev, (a, b) in enumerate(zip(ref["levels"], ours["levels"])):
         for key in ("A11", "A21", "G"):
@@ -175,12 +176,12 @@ def test_apply_matches_reference_and_generic(name):
     K, Pj, Pt = _pair(name, torch.float64)
     b = np.random.default_rng(42).standard_normal(K.shape[0])
     y_ref = np.asarray(Pj.apply_inverse(b))
-    sf = sfactors_from_numpy(_np_tree(Pj._sfactors), device="cpu")
-    y = Pt.apply_fn(sf, Pt._aplans, torch.as_tensor(b))
+    sf = sfactors_from_numpy(_np_tree(ref_repack(Pj)), device="cpu")
+    y = Pt.apply_fn(dataclasses.replace(Pt.factors, tree=sf),
+                    torch.as_tensor(b))
     assert _rel(y_ref, y) <= TOL[torch.float64]
     y_s = Pt.apply_inverse(b)
-    y_g = Pt.apply_generic(Pt._prune_factors(Pt._factors), Pt._aplans_gen,
-                           torch.as_tensor(b))
+    y_g = Pt.apply_fn(Pt.factors_of(Pt.factors.full), torch.as_tensor(b))
     assert _rel(y_g, y_s) <= TOL[torch.float64]
 
 
@@ -194,8 +195,8 @@ def test_apply_f32_matches_generic(name):
     b = np.random.default_rng(7).standard_normal(K.shape[0])
     y_s = Pt.apply_inverse(b)
     assert y_s.dtype == torch.float32
-    y_g = Pt.apply_generic(Pt._prune_factors(Pt._factors), Pt._aplans_gen,
-                           torch.as_tensor(b, dtype=torch.float32))
+    y_g = Pt.apply_fn(Pt.factors_of(Pt.factors.full),
+                      torch.as_tensor(b, dtype=torch.float32))
     assert _rel(y_g, y_s) <= TOL[torch.float32]
 
 
@@ -206,8 +207,9 @@ def test_apply_f32_matches_reference(name):
     K, Pj, Pt = _pair(name, torch.float32)
     b = np.random.default_rng(8).standard_normal(K.shape[0])
     y_ref = np.asarray(Pj.apply_inverse(b))
-    sf = sfactors_from_numpy(_np_tree(Pj._sfactors), device="cpu")
-    y = Pt.apply_fn(sf, Pt._aplans, torch.as_tensor(b, dtype=torch.float32))
+    sf = sfactors_from_numpy(_np_tree(ref_repack(Pj)), device="cpu")
+    y = Pt.apply_fn(dataclasses.replace(Pt.factors, tree=sf),
+                    torch.as_tensor(b, dtype=torch.float32))
     assert y.dtype == torch.float32
     assert _rel(y_ref, y) <= TOL[torch.float32]
 
@@ -259,8 +261,8 @@ def test_repack_is_exact_in_f32(name, device):
     prog = P._structured
     assert prog is not None
     for lev, L in enumerate(prog.levels):
-        f = P._factors["levels"][lev]
-        s = P._sfactors["levels"][lev]
+        f = P.factors.full["levels"][lev]
+        s = P.factors.tree["levels"][lev]
         checks = [("A11", L.sel, L.sel, f["A11inv"]),
                   ("A21", L.pc, L.sel, f["A21"]),
                   ("G", L.sel, L.pc, f["G"])]
@@ -314,7 +316,7 @@ def test_default_is_structured(case):
     Pt = T.Preconditioner(K, T.Params(d), testvector=tv, device="cpu")
     assert Pj._structured is not None
     assert Pt._structured is not None and Pt._structured_active
-    assert Pt._aplans is Pt._structured.consts
+    assert Pt.factors.plans is Pt._structured.consts
 
 
 @pytest.mark.parametrize("setting,reason", [

@@ -62,7 +62,7 @@ def test_variant_plans_and_factors_match_reference(grid, variant):
     _, _, _, Pj, Pt = _built(grid, variant)
     assert_plans_identical(Pj, Pt)
     assert_factors_agree(Pj, Pt)
-    n_blk = Pt._factors["levels"][0]["blkinv"].shape[0]
+    n_blk = Pt.factors.full["levels"][0]["blkinv"].shape[0]
     if variant == "Do Nothing":
         assert n_blk == 0
     elif variant == "Domain Decomposition":

@@ -130,15 +130,15 @@ def test_recompute_matches_reference():
     Pj.recompute(K2)
     Pt.recompute(K2)
     for lev, (fj, ft) in enumerate(zip(Pj._factors["levels"],
-                                       Pt._factors["levels"])):
+                                       Pt.factors.full["levels"])):
         for key in FACTOR_KEYS:
             assert _rel(fj[key], ft[key]) <= 1e-10, (lev, key)
     assert _rel(Pj._factors["coarse"]["inv"],
-                Pt._factors["coarse"]["inv"]) <= 1e-10
+                Pt.factors.full["coarse"]["inv"]) <= 1e-10
     cold2 = T.Preconditioner(K2, T.Params(d), testvector=tv,
                              device="cpu").compute()
-    assert _rel(cold2._factors["levels"][0]["A11inv"],
-                Pt._factors["levels"][0]["A11inv"]) <= 1e-10
+    assert _rel(cold2.factors.full["levels"][0]["A11inv"],
+                Pt.factors.full["levels"][0]["A11inv"]) <= 1e-10
     # the structured apply was repacked from the polished factors
     assert _rel(Pj.apply_inverse(b), Pt.apply_inverse(b)) <= 1e-9
 
@@ -147,11 +147,11 @@ def test_recompute_matches_reference():
     Pt.recompute(K3)
     cold3 = T.Preconditioner(K3, T.Params(d), testvector=tv,
                              device="cpu").compute()
-    for ft, fc in zip(Pt._factors["levels"], cold3._factors["levels"]):
+    for ft, fc in zip(Pt.factors.full["levels"], cold3.factors.full["levels"]):
         for key in FACTOR_KEYS:
             assert torch.equal(ft[key], fc[key]), key
-    assert torch.equal(Pt._factors["coarse"]["inv"],
-                       cold3._factors["coarse"]["inv"])
+    assert torch.equal(Pt.factors.full["coarse"]["inv"],
+                       cold3.factors.full["coarse"]["inv"])
     assert torch.equal(Pt.apply_inverse(b), cold3.apply_inverse(b))
     Pj.recompute(K3)
     assert _rel(Pj.apply_inverse(b), Pt.apply_inverse(b)) <= 1e-9
@@ -163,8 +163,8 @@ def test_recompute_is_cold_without_factors_or_with_a_border():
     cold = T.Preconditioner(K, T.Params(d), testvector=tv,
                             device="cpu").compute()
     P.recompute()
-    assert torch.equal(P._factors["coarse"]["inv"],
-                       cold._factors["coarse"]["inv"])
+    assert torch.equal(P.factors.full["coarse"]["inv"],
+                       cold.factors.full["coarse"]["inv"])
     with pytest.raises(ValueError, match="pattern"):
         P.recompute(K[:, :-1].tocsr()[:-1])
 
@@ -192,4 +192,4 @@ def test_newton_step_warm_matches_reference():
         assert np.linalg.norm(Ks @ x - b) / np.linalg.norm(b) <= 1e-10, i
         assert abs(rt.iters - int(rj.iters)) <= 2, (i, rt.iters,
                                                     int(rj.iters))
-        assert set(fac_t["levels"][0]) == set(FACTOR_KEYS)
+        assert set(fac_t.full["levels"][0]) == set(FACTOR_KEYS)
