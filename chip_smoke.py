@@ -262,7 +262,16 @@ raises on failure (nonzero exit, no result line):
      against recompute() (warm_inv on the coarse inverse: polished from
      the last one where its gate passes; LU refactored cold) and
      newton_step against newton_step_warm, with inner iterations and
-     true f64 relres.
+     true f64 relres;
+ 30. GMRES's iterations replayed from CUDA graphs (solvers/krylov.py:
+     GmresGraphs) against the eager loop, on cavity128 (one level) and
+     upstream's stokes2_3D at 32^3 (two levels), refinement solves of
+     one b in turns (graph, eager, eager, graph, twice): x equal bit for
+     bit with equal inner iterations, the first graph solve's captures
+     and the memory its workspace and graphs took, wall and CUDA-event
+     us per inner iteration of each side, device busy us and
+     synchronizing calls per iteration (torch.profiler), and the
+     synchronizing calls of one solve by Python line.
 
 Every other phase runs with the plan disk cache off (HYMLS_PLAN_CACHE
 empty), so that its plan builds are cold ones.
@@ -2846,6 +2855,218 @@ def drive_coarse_inverse(device):
     return out
 
 
+@contextlib.contextmanager
+def gmres_path(kind):
+    """GMRES on the card as it is ("graph": each iteration replayed from
+    the process's workspaces, solvers/krylov.py:GmresGraphs), from a new
+    empty cache ("fresh": nothing captured yet) or op by op ("eager": a
+    workspace cache that takes no CUDA tensor)."""
+    from hymls_tpu_torch.solvers import krylov
+    orig = krylov._GRAPHS
+    if kind == "eager":
+        krylov._GRAPHS = krylov.GmresGraphs(device_type="none")
+    elif kind == "fresh":
+        krylov._GRAPHS = krylov.GmresGraphs()
+    try:
+        yield
+    finally:
+        krylov._GRAPHS = orig
+
+
+def gmres_counters(before):
+    """The GMRES graph counters since the snapshot `before`."""
+    from hymls_tpu_torch.utils import timings
+    now = timings.counter_snapshot()
+    return {k[len("hymls.gmres."):]: now.get(k, 0) - before.get(k, 0)
+            for k in ("hymls.gmres.graph_captures",
+                      "hymls.gmres.graph_replays", "hymls.gmres.eager",
+                      "hymls.gmres.iters")}
+
+
+def busy_and_syncs(fn):
+    """(device busy us, synchronizing runtime calls) of one call of `fn`
+    under torch.profiler: the union of the kernel and copy intervals,
+    and the cuda*Synchronize calls."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, syncs = [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+        elif "Synchronize" in e.name:
+            syncs += 1
+    busy, at = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t > at:
+            busy += t - max(s, at)
+            at = t
+    return busy, syncs
+
+
+def graph_pool_bytes(spaces):
+    """(bytes of the segments, bytes allocated in them) of the memory
+    pools that the workspaces' graphs were captured into."""
+    pools = {ws.backend.pool for ws in spaces if ws.backend.pool is not None}
+    seg = alloc = 0
+    for x in torch.cuda.memory_snapshot():
+        if tuple(x.get("segment_pool_id", ())) in pools:
+            seg += x["total_size"]
+            alloc += x["allocated_size"]
+    return seg, alloc
+
+
+def gmres_graph_case(tag, S, b, rounds: int = 2):
+    """Phase 30 for one refinement solver: the solve of b with GMRES's
+    iterations replayed and op by op, in turns (graph, eager, eager,
+    graph per round): x equal bit for bit and the same inner
+    iterations; the first graph solve's captures and the memory the
+    workspace and its graphs took; wall and CUDA-event us per inner
+    iteration of each side, device busy us per iteration and
+    synchronizing calls per iteration (torch.profiler), and the
+    synchronizing calls of one solve by their Python line (torch's sync
+    debug mode)."""
+    import warnings
+    from hymls_tpu_torch.solvers import krylov
+    from hymls_tpu_torch.utils import timings
+    with gmres_path("eager"):
+        x_ref = S.solve(b)
+        iters = S.num_iter
+    torch.cuda.synchronize()
+    alloc0, reserved0 = (torch.cuda.memory_allocated(),
+                         torch.cuda.memory_reserved())
+    before = timings.counter_snapshot()
+    t0 = time.perf_counter()
+    x = S.solve(b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c = gmres_counters(before)
+    spaces = [ws for key, ws in krylov._GRAPHS._spaces.items()
+              if key[0] == b.shape[0]]
+    rec = {"n": b.shape[0], "inner_iters": iters, "first_solve_s": first_s,
+           "first_solve_counters": c,
+           "workspace_bytes": sum(
+               t.numel() * t.element_size() for ws in spaces
+               for t in (ws.V, ws.R, ws.g, ws.Q, ws.eye, ws.w, ws.scale)),
+           "graphs": sum(len(ws.graphs) for ws in spaces),
+           "allocated_delta_B": torch.cuda.memory_allocated() - alloc0,
+           "reserved_delta_B": torch.cuda.memory_reserved() - reserved0,
+           "graph_pool_B": graph_pool_bytes(spaces)}
+    if not torch.equal(x, x_ref) or S.num_iter != iters or \
+            c["graph_captures"] == 0 or c["eager"] != c["graph_captures"] \
+            or c["graph_replays"] + c["eager"] != iters:
+        raise RuntimeError(f"{tag}: first graph solve: counters {c}, "
+                           f"iterations {S.num_iter} against {iters}, x "
+                           f"equal {torch.equal(x, x_ref)}")
+    sides = {"graph": {"wall_us": [], "event_us": []},
+             "eager": {"wall_us": [], "event_us": []}}
+    for _ in range(rounds):
+        for kind in ("graph", "eager", "eager", "graph"):
+            with gmres_path(kind):
+                before = timings.counter_snapshot()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                x = S.solve(b)
+                end.record()
+                end.synchronize()
+                wall = time.perf_counter() - t0
+                c = gmres_counters(before)
+            want = {"graph_captures": 0, "graph_replays": iters, "eager": 0,
+                    "iters": iters} if kind == "graph" else {
+                "graph_captures": 0, "graph_replays": 0, "eager": iters,
+                "iters": iters}
+            if not torch.equal(x, x_ref) or c != want:
+                raise RuntimeError(f"{tag} {kind}: counters {c}, x equal "
+                                   f"{torch.equal(x, x_ref)}")
+            sides[kind]["wall_us"].append(wall * 1e6 / iters)
+            sides[kind]["event_us"].append(
+                start.elapsed_time(end) * 1e3 / iters)
+    for kind, side in sides.items():
+        with gmres_path(kind):
+            busy, syncs = busy_and_syncs(lambda: S.solve(b))
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    S.solve(b)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        lines = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                at = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                lines[at] = lines.get(at, 0) + 1
+        side.update(busy_us_per_iter=busy / iters,
+                    syncs_per_iter=syncs / iters, sync_lines=lines)
+        side["wall_us_median"] = statistics.median(side["wall_us"])
+        side["event_us_median"] = statistics.median(side["event_us"])
+        log(f"gmres graph {tag} {kind}: {iters} inner iterations, per "
+            f"iteration wall {side['wall_us_median']:.1f} us, CUDA events "
+            f"{side['event_us_median']:.1f} us (medians of {2 * rounds}, "
+            f"interleaved), device busy {side['busy_us_per_iter']:.1f} us; "
+            f"{side['syncs_per_iter']:.3f} synchronizing calls an "
+            f"iteration (profiler); by line (sync debug mode) {lines}")
+    rec.update(sides)
+    log(f"gmres graph {tag}: x equal bit for bit on both paths; first "
+        f"graph solve {first_s:.4f} s with {rec['graphs']} captures; "
+        f"workspace {rec['workspace_bytes']} B, memory allocated "
+        f"+{rec['allocated_delta_B']} B, reserved +{rec['reserved_delta_B']}"
+        f" B; the graphs' pool (segments, allocated) {rec['graph_pool_B']} B")
+    return rec
+
+
+def drive_gmres_graph(device):
+    """Phase 30: GMRES's iterations replayed from CUDA graphs against the
+    eager loop on the benchmark's two claimed resolve configurations,
+    cavity128 on one level and upstream's stokes2_3D at 32^3 on two
+    (`gmres_graph_case`).  The 32^3 plan build takes ~25 s of the
+    phase."""
+    from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver
+    from hymls_tpu_torch.stencils import create_matrix, create_testvector
+    from hymls_tpu_torch.stencils.navier_stokes import cavity_jacobian
+
+    t_start = time.perf_counter()
+    out = {}
+    p = cavity64_params()
+    p.sublist("Problem")["nx"] = p.sublist("Problem")["ny"] = 128
+    K = cavity_jacobian(128, 128, re=1000.0).tocsr()
+    p3 = stokes_params(32, 3, 2, "Skew Cartesian", maxiter=160, tol=1e-8)
+    pre = p3.sublist("Preconditioner")
+    pre["Coarsening Factor"] = 2
+    pre["Eliminate Velocities Together"] = False
+    for tag, params, mat in (("cavity128", p, lambda: K),
+                             ("stokes3d 32^3 L2", p3,
+                              lambda: create_matrix(p3).tocsr())):
+        Kc = mat()
+        S = IterativeRefinementSolver(
+            Kc, params, testvector=create_testvector(params, Kc),
+            device=device).compute()
+        b = Kc @ np.random.default_rng(0).standard_normal(Kc.shape[0])
+        # a new cache: the earlier phases' solves of the same shapes
+        # captured into the process's one
+        with gmres_path("fresh"):
+            out[tag] = gmres_graph_case(tag, S, torch.as_tensor(
+                b, dtype=torch.float64, device=device))
+        relres = true_relres(Kc, S.solve(b), b)
+        tol = params.sublist("Solver").sublist("Iterative Solver")[
+            "Convergence Tolerance"]
+        if not relres <= tol:
+            raise RuntimeError(f"{tag}: relres {relres:.3e} above {tol}")
+        out[tag]["relres"] = relres
+        del S
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 30 in {out['seconds']:.1f} s")
+    return out
+
+
 def timed_rpc(cli, req):
     """(response, s) of one bridge request with its file round trip."""
     t0 = time.perf_counter()
@@ -3375,6 +3596,9 @@ def main(argv=None) -> int:
     # -- 29. the large coarse system as its inverse against LU ---------------
     coarse = drive_coarse_inverse(device)
 
+    # -- 30. GMRES's iterations replayed from CUDA graphs against eager ------
+    gmres_graph = drive_gmres_graph(device)
+
     # the card again: a tool that keeps only the end of the output keeps it
     log(f"total {time.perf_counter() - t_start:.1f} s on "
         f"{gpu_name_and_power()}")
@@ -3397,7 +3621,8 @@ def main(argv=None) -> int:
         "bordered_deflated": bordered_deflated, "complex": cplx,
         "eigen": eigen, "driver": driver, "bridge": bridge,
         "plan_cache": cached, "distributed": distributed,
-        "apply_graph": apply_graph, "coarse_inverse": coarse}}))
+        "apply_graph": apply_graph, "coarse_inverse": coarse,
+        "gmres_graph": gmres_graph}}))
     mm18 = matmat["timed"][f"aniso{DEFL_NX} B=8 f64"]
     defl_configs = {f"{phase}_{c}": r for phase, recs in (
         ("driver", driver), ("suite", suite["auto"]))

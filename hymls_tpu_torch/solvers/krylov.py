@@ -17,6 +17,18 @@ the right-hand side with scale_with_rhs=True.
 The loops are Python `while` loops: each iteration reads its residual
 on the host once (one device synchronisation per iteration on CUDA).
 
+On a CUDA device (and without `allreduce`) GMRES replays each
+iteration's Arnoldi and Givens step (`_arnoldi`, everything after the
+matvec and the preconditioner) from a CUDA graph captured once per
+iteration index k on a workspace kept per (n, m, dtype, device)
+(`GmresGraphs`): the same kernels on the same slices in the same order
+as the eager loop, which every other solve runs, so the iterates are
+equal bit for bit and the host issues one copy, one graph launch and
+one read per iteration.  The graphs read no operator, preconditioner
+or factorization, so a new Newton step captures nothing.  Counters
+(`utils/timings.py`, always on): `hymls.gmres.graph_replays` and
+`hymls.gmres.eager` per iteration, `hymls.gmres.graph_captures`.
+
 `gmres_batched` runs nb systems at once, one per row of a block, with
 the semantics of the JAX package's `jax.vmap(krylov.gmres)`.
 
@@ -31,10 +43,15 @@ Without it the loops are the single-process ones.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+import warnings
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..core.apply_graph import CudaGraphs
 from ..utils.timings import count, prof
 
 
@@ -106,7 +123,10 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
 def _gmres(op, b, x0, prec, *, tol, maxiter, left, scale_with_rhs,
            allreduce, _scale=None) -> KrylovResult:
     """Full GMRES (`gmres` without a restart); `_scale`, a restart
-    cycle's convergence scale, that of the whole solve."""
+    cycle's convergence scale, that of the whole solve.  Each iteration
+    is the matvec, then `_arnoldi`: op by op (the eager loop), or, on a
+    workspace of `_GRAPHS` (a CUDA b, no `allreduce`), replayed from a
+    captured CUDA graph (`GmresGraphs`)."""
     norm, project, _ = _reductions(allreduce)
     n = b.shape[0]
     dtype = b.dtype
@@ -133,76 +153,235 @@ def _gmres(op, b, x0, prec, *, tol, maxiter, left, scale_with_rhs,
         scale = beta
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
 
-    V = torch.zeros((m + 1, n), dtype=dtype, device=b.device)
-    V[0] = torch.where(beta > 0, r0 / beta, r0)
-    R = torch.zeros((m + 1, m), dtype=dtype, device=b.device)
-    g = torch.zeros(m + 1, dtype=dtype, device=b.device)
-    g[0] = beta.to(dtype)
-    # accumulated Givens product, applied to each new column as one
-    # matvec (rows/cols >= k+2 are still identity and the column is
-    # zero there)
-    Q = torch.eye(m + 1, dtype=dtype, device=b.device)
-    # norms and moduli are real tensors also for complex vectors: `one`
-    # is their unit, `one_c` and `zero_c` those of the vectors' dtype
-    one = torch.ones((), dtype=beta.dtype, device=b.device)
-    one_c = one.to(dtype)
-    zero_c = torch.zeros_like(one_c)
+    with _GRAPHS.checkout(b, m, allreduce) as ws:
+        if ws is None:
+            V = torch.zeros((m + 1, n), dtype=dtype, device=b.device)
+            R = torch.zeros((m + 1, m), dtype=dtype, device=b.device)
+            g = torch.zeros(m + 1, dtype=dtype, device=b.device)
+            g[0] = beta.to(dtype)
+            # accumulated Givens product, applied to each new column as
+            # one matvec (rows/cols >= k+2 are still identity and the
+            # column is zero there)
+            Q = torch.eye(m + 1, dtype=dtype, device=b.device)
+            units = _units(beta, dtype)
 
-    res = float(beta / scale)
-    done = res <= tol
-    k = 0
-    while k < m and not done:
-        w = matop(V[k])
-        # CGS2 against basis vectors 0..k (the rows above k are still
-        # zero, so the slice equals the reference's masked product);
-        # conj() of a real tensor is the tensor itself
-        Vk = V[:k + 1]
-        Vc = Vk.conj()
-        h1 = project(Vc, w)
-        w = w - torch.mv(Vk.T, h1)
-        h2 = project(Vc, w)
-        w = w - torch.mv(Vk.T, h2)
-        hk1 = norm(w).to(dtype)
-        V[k + 1] = torch.where(torch.abs(hk1) > 0, w / hk1, w)
+            def step(k, w):
+                count("hymls.gmres.eager")
+                return float(_arnoldi(V, R, g, Q, w, k, scale, units, norm,
+                                      project))
+        else:
+            V, R, g = ws.V, ws.R, ws.g
+            ws.start(beta, scale)
+            step = ws.step
+        V[0] = torch.where(beta > 0, r0 / beta, r0)
 
-        col = torch.zeros(m + 1, dtype=dtype, device=b.device)
-        col[:k + 1] = h1 + h2
-        col[k + 1] = hk1
-        col = torch.mv(Q, col)
-
-        # new rotation zeroing col[k+1] (complex-safe Givens: c real,
-        # s = sgn(a) conj(b) / r)
-        a, bb = col[k], col[k + 1]
-        denom = torch.sqrt(torch.abs(a) ** 2 + torch.abs(bb) ** 2)
-        absa = torch.abs(a)
-        ck = torch.where(denom > 0, absa / denom, one).to(dtype)
-        sgn = torch.where(absa > 0, a / torch.where(absa > 0, absa, one),
-                          one_c)
-        sk = torch.where(denom > 0, sgn * bb.conj() / denom, zero_c)
-        col[k] = denom * sgn
-        col[k + 1] = 0.0
-        # fold G_k into Q: rows k and k+1 mix
-        qk, qk1 = Q[k].clone(), Q[k + 1].clone()
-        Q[k] = ck * qk + sk * qk1
-        Q[k + 1] = -sk.conj() * qk + ck * qk1
-        gk1 = -sk.conj() * g[k]
-        g[k] = ck * g[k]
-        g[k + 1] = gk1
-
-        R[:, k] = col
-        k += 1
-        res = float(torch.abs(gk1) / scale)
+        res = float(beta / scale)
         done = res <= tol
+        k = 0
+        while k < m and not done:
+            res = step(k, matop(V[k]))
+            k += 1
+            done = res <= tol
 
-    # solve R[:k,:k] y = g[:k]; correction in the Krylov basis
-    if k:
-        y = torch.linalg.solve_triangular(R[:k, :k], g[:k, None],
-                                          upper=True)[:, 0]
-        dx = torch.mv(V[:k].T, y)
-        x = x0 + (dx if left else prec(dx))
-    else:
-        x = x0.clone()
+        # solve R[:k,:k] y = g[:k]; correction in the Krylov basis
+        if k:
+            y = torch.linalg.solve_triangular(R[:k, :k], g[:k, None],
+                                              upper=True)[:, 0]
+            dx = torch.mv(V[:k].T, y)
+            x = x0 + (dx if left else prec(dx))
+        else:
+            x = x0.clone()
     return KrylovResult(x=x, iters=k, relres=res, converged=done)
+
+
+def _units(beta, dtype):
+    """(one, one_c, zero_c): norms and moduli are real tensors also for
+    complex vectors; `one` is their unit, `one_c` and `zero_c` those of
+    the vectors' dtype."""
+    one = torch.ones((), dtype=beta.dtype, device=beta.device)
+    one_c = one.to(dtype)
+    return one, one_c, torch.zeros_like(one_c)
+
+
+def _arnoldi(V, R, g, Q, w, k, scale, units, norm, project):
+    """GMRES iteration k after its matvec w = matop(V[k]): CGS2 of w
+    against V[:k+1], the new basis vector V[k+1], the new column of the
+    Hessenberg matrix rotated by the Givens product Q, the rotation that
+    zeroes its subdiagonal folded into Q and g, and the column into R.
+    Writes V, R, g and Q in place and returns the implicit relative
+    residual |g[k+1]| / scale, a 0-d tensor: nothing is read back to the
+    host, so the eager loop runs it op by op and `GmresGraphs` captures
+    it for each k."""
+    dtype = V.dtype
+    one, one_c, zero_c = units
+    # CGS2 against basis vectors 0..k (the slice is the reference's
+    # masked product: the rows above k are not part of it); conj() of a
+    # real tensor is the tensor itself
+    Vk = V[:k + 1]
+    Vc = Vk.conj()
+    h1 = project(Vc, w)
+    w = w - torch.mv(Vk.T, h1)
+    h2 = project(Vc, w)
+    w = w - torch.mv(Vk.T, h2)
+    hk1 = norm(w).to(dtype)
+    V[k + 1] = torch.where(torch.abs(hk1) > 0, w / hk1, w)
+
+    col = torch.zeros(V.shape[0], dtype=dtype, device=V.device)
+    col[:k + 1] = h1 + h2
+    col[k + 1] = hk1
+    col = torch.mv(Q, col)
+
+    # new rotation zeroing col[k+1] (complex-safe Givens: c real,
+    # s = sgn(a) conj(b) / r)
+    a, bb = col[k], col[k + 1]
+    denom = torch.sqrt(torch.abs(a) ** 2 + torch.abs(bb) ** 2)
+    absa = torch.abs(a)
+    ck = torch.where(denom > 0, absa / denom, one).to(dtype)
+    sgn = torch.where(absa > 0, a / torch.where(absa > 0, absa, one),
+                      one_c)
+    sk = torch.where(denom > 0, sgn * bb.conj() / denom, zero_c)
+    col[k] = denom * sgn
+    # a fill on the device: assigning the Python scalar 0.0 would copy
+    # it from pageable host memory, a host sync that no graph captures
+    col[k + 1].zero_()
+    # fold G_k into Q: rows k and k+1 mix
+    qk, qk1 = Q[k].clone(), Q[k + 1].clone()
+    Q[k] = ck * qk + sk * qk1
+    Q[k + 1] = -sk.conj() * qk + ck * qk1
+    gk1 = -sk.conj() * g[k]
+    g[k] = ck * g[k]
+    g[k + 1] = gk1
+
+    R[:, k] = col
+    return torch.abs(gk1) / scale
+
+
+class _Workspace:
+    """One GMRES basis of m + 1 vectors of n entries, with R, g, Q, the
+    static matvec input `w`, the static `scale`, the constants of
+    `_units` and the residual's host scalar `res` (pinned on a CUDA
+    device), and the graphs of `_arnoldi` on them, one per iteration
+    index k, captured the first time a solve reaches k by `backend` (a
+    `CudaGraphs` of its own: its side stream and memory pool)."""
+
+    def __init__(self, n, m, dtype, device, backend):
+        real = _REAL_OF.get(dtype, dtype)
+        self.device, self.backend = device, backend
+        self.V = torch.zeros((m + 1, n), dtype=dtype, device=device)
+        self.R = torch.zeros((m + 1, m), dtype=dtype, device=device)
+        self.g = torch.zeros(m + 1, dtype=dtype, device=device)
+        self.Q = torch.empty((m + 1, m + 1), dtype=dtype, device=device)
+        self.eye = torch.eye(m + 1, dtype=dtype, device=device)
+        self.w = torch.zeros(n, dtype=dtype, device=device)
+        self.scale = torch.ones((), dtype=real, device=device)
+        self.units = _units(self.scale, dtype)
+        self.res = torch.zeros((), dtype=real,
+                               pin_memory=device.type == "cuda")
+        self.graphs = {}        # k -> the graph of iteration k
+        self.busy = False       # checked out by a solve
+        self.failed = False     # a capture raised: eager from then on
+
+    def start(self, beta, scale) -> None:
+        """A new solve from beta = ||r0|| on the convergence scale:
+        Q = I, g[0] = beta, the static scale; V[1:], R and the rest of
+        g are written before they are read."""
+        self.Q.copy_(self.eye)
+        self.g[0] = beta.to(self.g.dtype)
+        self.scale.copy_(scale)
+
+    def _body(self, k):
+        def body():
+            self.res.copy_(_arnoldi(self.V, self.R, self.g, self.Q, self.w,
+                                    k, self.scale, self.units,
+                                    torch.linalg.norm, torch.mv),
+                           non_blocking=True)
+        return body
+
+    def step(self, k, w) -> float:
+        """Iteration k after its matvec w: replayed from its graph, or,
+        the first time, run op by op on the backend's side stream and
+        captured; returns the residual read on the host."""
+        self.w.copy_(w)
+        graph = self.graphs.get(k)
+        if graph is not None:
+            self.backend.replay(graph)
+            count("hymls.gmres.graph_replays")
+        else:
+            body = self._body(k)
+            if self.failed:
+                body()
+            else:
+                self.backend.warm_up(body, self.device)
+                self._capture(k, body)
+            count("hymls.gmres.eager")
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self.res.item()
+
+    def _capture(self, k, body) -> None:
+        try:
+            self.graphs[k], _ = self.backend.capture(body, self.device)
+        except Exception as e:
+            self.failed = True
+            self.graphs = {}
+            warnings.warn(f"a GMRES iteration on {self.V.shape[1]} "
+                          f"{self.V.dtype} unknowns could not be captured "
+                          f"as a CUDA graph; its solves run eagerly: {e}",
+                          RuntimeWarning)
+            return
+        count("hymls.gmres.graph_captures")
+
+
+class GmresGraphs:
+    """The GMRES workspaces of a process, one per (n, m, dtype, device),
+    each with its captured iterations (`_Workspace`); at most `keep`,
+    the least recently used dropped with its graphs.  A solve checks a
+    workspace out while it runs: a solve started inside it (in its
+    preconditioner, or on another thread) with the same key runs
+    eagerly.  So does a solve with `allreduce` (its reductions are
+    collectives), on another device type than `device_type`, or with a
+    key whose capture once raised.  `backend` makes each workspace's
+    capture backend (`CudaGraphs`); tests give a stand-in."""
+
+    keep = 4
+
+    def __init__(self, backend=CudaGraphs, device_type="cuda"):
+        self.backend, self.device_type = backend, device_type
+        self._spaces = OrderedDict()
+        self._lock = threading.Lock()
+
+    def _take(self, key):
+        with self._lock:
+            ws = self._spaces.get(key)
+            if ws is None:
+                if len(self._spaces) >= self.keep:
+                    idle = [k for k, v in self._spaces.items() if not v.busy]
+                    if not idle:
+                        return None
+                    del self._spaces[idle[0]]
+                ws = self._spaces[key] = _Workspace(*key, self.backend())
+            elif ws.busy or ws.failed:
+                return None
+            self._spaces.move_to_end(key)
+            ws.busy = True
+            return ws
+
+    @contextlib.contextmanager
+    def checkout(self, b, m, allreduce):
+        """The workspace of b's shape, m and b's dtype and device, busy
+        until the block ends, or None where the solve runs eagerly."""
+        ws = None
+        if allreduce is None and b.device.type == self.device_type:
+            ws = self._take((b.shape[0], m, b.dtype, b.device))
+        try:
+            yield ws
+        finally:
+            if ws is not None:
+                ws.busy = False
+
+
+#: the process's GMRES workspaces and their graphs
+_GRAPHS = GmresGraphs()
 
 
 def gmres_batched(op: Callable, B: torch.Tensor, X0: torch.Tensor,
