@@ -107,7 +107,8 @@ def warm_inv(A, X0, fresh_fn=None, accept=0.25, max_steps=4, tol=None):
     gate as in the reference's `lax.cond`), polish it with
     residual-adaptive Newton-Schulz steps; otherwise `fresh_fn(A)`
     (`inv_newton` by default).  The gate is read on the host: one
-    scalar, so only the branch taken runs."""
+    scalar, so only the branch taken runs.  Counts the call in
+    `hymls.warm.polish` or `hymls.warm.fresh`, by the branch taken."""
     if fresh_fn is None:
         fresh_fn = inv_newton
     if A.numel() == 0:
@@ -118,7 +119,9 @@ def warm_inv(A, X0, fresh_fn=None, accept=0.25, max_steps=4, tol=None):
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     r0 = torch.max(torch.abs(eye - torch.matmul(A, X0)))
     if bool(r0 < accept):
+        count("hymls.warm.polish")
         return _newton_refine(A, X0, max_steps=max_steps, tol=tol)
+    count("hymls.warm.fresh")
     return fresh_fn(A)
 
 
@@ -131,14 +134,28 @@ def dense_factor(A) -> dict:
     """Factor one (unbatched) dense system for repeated solves: off the
     CPU the inverse at every size, on the CPU the inverse up to 2048
     unknowns and LU factors above.  Counts each factor in
-    `hymls.coarse.inverse` or `hymls.coarse.lu`."""
+    `hymls.coarse.inverse` or `hymls.coarse.lu`, and its order in
+    `hymls.coarse.unknowns`."""
     n = A.shape[-1]
+    count("hymls.coarse.unknowns", n)
     if on_accelerator(A) or n <= _LU_THRESHOLD or A.dim() != 2:
         count("hymls.coarse.inverse")
         return {"inv": inv_newton(A)}
     count("hymls.coarse.lu")
     lu, piv = torch.linalg.lu_factor(A)
     return {"lu": lu, "piv": piv}
+
+
+def dense_refactor(A, prev=None) -> dict:
+    """`dense_factor` of new values of the same system.  Where `prev`,
+    the last factor, is an explicit inverse, it is warm-started from it
+    (`warm_inv`) and counted as `dense_factor` counts an inverse; LU
+    factors are recomputed cold."""
+    if prev is None or "inv" not in prev:
+        return dense_factor(A)
+    count("hymls.coarse.unknowns", A.shape[-1])
+    count("hymls.coarse.inverse")
+    return {"inv": warm_inv(A, prev["inv"])}
 
 
 def dense_solve(fac: dict, rhs):

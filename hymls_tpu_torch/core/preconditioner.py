@@ -69,6 +69,7 @@ from .structured import APPLY_LEVEL_SPANS
 from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
                     warm_inv as _warm_inv, warm_inv_chain as _warm_chain,
                     dense_factor as _dense_factor,
+                    dense_refactor as _dense_refactor,
                     dense_solve as _dense_solve, _matmul)
 
 
@@ -395,9 +396,7 @@ def _coarse_factor(vals, rows, cols, diag_entry, fix_rows, n,
     A = _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n)
     if store_dtype is not None:
         A = A.to(store_dtype)
-    if prev is not None and "inv" in prev:
-        return {"inv": _warm_inv(A, prev["inv"])}
-    return _dense_factor(A)
+    return _dense_refactor(A, prev)
 
 
 def _coarse_matrix(vals, rows, cols, diag_entry, fix_rows, n):
@@ -662,10 +661,8 @@ def _compute_direct(vals, dp, ddirect, n_sep, border_vals=None, prev=None,
     fac = {"levels": [lev]}
     if border_vals is None:
         Ss = S if store_dtype is None else S.to(store_dtype)
-        if prev is not None and "inv" in prev["coarse"]:
-            fac["coarse"] = {"inv": _warm_inv(Ss, prev["coarse"]["inv"])}
-        else:
-            fac["coarse"] = _dense_factor(Ss)
+        fac["coarse"] = _dense_refactor(
+            Ss, None if prev is None else prev["coarse"])
         return fac
     Q1, W1, schurV, schurW, Cs = _eliminate_border(lev, dp, *border_vals)
     Maug = _augment(S, schurV, schurW, Cs)
@@ -1004,8 +1001,9 @@ class Preconditioner:
         `hymls.plan.build`, the disk cache's load and store inside
         `hymls.plan.cache_load` and `.cache_store`, the move to the
         device inside `hymls.plan.device`.  Counts the construction in
-        `hymls.plan.builds` or `hymls.plan.cache_loads`, and the bytes
-        of the device plans in `hymls.plan.device_bytes`."""
+        `hymls.plan.builds` or `hymls.plan.cache_loads`, its levels in
+        `hymls.plan.levels`, and the bytes of the device plans in
+        `hymls.plan.device_bytes`."""
         with prof("hymls.plan", 1):
             self.plans: List[LevelPlan] = []
             self.hierarchies = []
@@ -1026,6 +1024,7 @@ class Preconditioner:
                 with prof("hymls.plan.build", 2):
                     self._build_plans()
                 count("hymls.plan.builds")
+            count("hymls.plan.levels", len(self.plans))
             self.plan_from_cache = cached is not None
             self.plan_seconds = time.perf_counter() - t0
             if cached is None and \

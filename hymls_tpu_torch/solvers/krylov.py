@@ -95,7 +95,8 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
           scale_with_rhs: bool = False, restart: Optional[int] = None,
           allreduce: Optional[Callable] = None) -> KrylovResult:
     """Preconditioned GMRES, inside the span `hymls.gmres`; adds its
-    iterations to the counter `hymls.gmres.iters`.
+    iterations to the counter `hymls.gmres.iters`, and counts a solve
+    that stopped at `maxiter` above `tol` in `hymls.gmres.capped`.
 
     op/prec: closures x -> A x and x -> M^{-1} x.
     left: left preconditioning (residual measured in preconditioned
@@ -116,8 +117,17 @@ def gmres(op: Callable, b: torch.Tensor, x0: torch.Tensor,
             res = _gmres(op, b, x0, prec, tol=tol, maxiter=maxiter,
                          left=left, scale_with_rhs=scale_with_rhs,
                          allreduce=allreduce)
-    count("hymls.gmres.iters", res.iters)
+    _count_solve(res)
     return res
+
+
+def _count_solve(res: KrylovResult) -> None:
+    """A Krylov solve's counters: its iterations in `hymls.gmres.iters`,
+    and in `hymls.gmres.capped` 1 where it stopped at its iteration cap
+    above its tolerance, else 0 (so the counter exists once a solve
+    ran)."""
+    count("hymls.gmres.iters", res.iters)
+    count("hymls.gmres.capped", int(not res.converged))
 
 
 def _gmres(op, b, x0, prec, *, tol, maxiter, left, scale_with_rhs,
@@ -527,12 +537,11 @@ def cg(op: Callable, b: torch.Tensor, x0: torch.Tensor,
     """Preconditioned conjugate gradients.  Works on negative-definite
     systems too (the CG formulas are invariant under a simultaneous
     sign flip of the operator and the preconditioner).  `allreduce` as
-    in `gmres`.  Inside the span `hymls.cg`; adds its iterations to the
-    counter `hymls.gmres.iters`."""
+    in `gmres`.  Inside the span `hymls.cg`; counts as `gmres` does."""
     with prof("hymls.cg", 2):
         res = _cg(op, b, x0, prec, tol=tol, maxiter=maxiter,
                   scale_with_rhs=scale_with_rhs, allreduce=allreduce)
-    count("hymls.gmres.iters", res.iters)
+    _count_solve(res)
     return res
 
 

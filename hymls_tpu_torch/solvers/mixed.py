@@ -118,8 +118,9 @@ class IterativeRefinementSolver:
         `apply_inverse`); `iters` counts the inner f32 iterations of all
         passes, and x comes back global.  Inside the span `hymls.refine`,
         each pass's f64 residual inside `hymls.refine.residual`; counts
-        the solve in `hymls.refine.solves` and each pass in
-        `hymls.refine.passes`."""
+        the solve in `hymls.refine.solves`, each pass in
+        `hymls.refine.passes`, and in `hymls.refine.capped` a solve
+        that stopped at `max_passes` above the tolerance."""
         count("hymls.refine.solves")
         b = loop.scatter(b)
         nb = float(loop.norm(b))
@@ -137,6 +138,8 @@ class IterativeRefinementSolver:
             iters += res.iters
             passes += 1
             count("hymls.refine.passes")
+        if rel > self.tol:
+            count("hymls.refine.capped")
         return KrylovResult(x=loop.gather(x), iters=iters, relres=rel,
                             converged=rel <= self.tol)
 

@@ -133,6 +133,29 @@ def test_dense_factor_counts_its_branch(n, counter):
     assert delta == {k: 2 if k == counter else 0 for k in delta}
 
 
+@pytest.mark.parametrize("n,counter", [(40, "hymls.coarse.inverse"),
+                                       (2049, "hymls.coarse.lu")])
+def test_dense_refactor_counts_as_dense_factor(n, counter):
+    """A refactor counts as `dense_factor` counts: an inverse warm from
+    the last one, LU factors cold."""
+    A = torch.eye(n, dtype=torch.float64) * 2.0
+    prev = tdense.dense_factor(A)
+    keys = ("hymls.coarse.inverse", "hymls.coarse.lu",
+            "hymls.coarse.unknowns", "hymls.warm.polish")
+    before = timings.counter_snapshot()
+    fac = tdense.dense_refactor(A * 1.001, prev)
+    now = timings.counter_snapshot()
+    delta = {k: now.get(k, 0) - before.get(k, 0) for k in keys}
+    warm = counter == "hymls.coarse.inverse"
+    assert delta == {"hymls.coarse.inverse": int(warm),
+                     "hymls.coarse.lu": int(not warm),
+                     "hymls.coarse.unknowns": n,
+                     "hymls.warm.polish": int(warm)}
+    x = tdense.dense_solve(fac, torch.ones(n, dtype=torch.float64))
+    assert torch.allclose(x, torch.full((n,), 1 / 2.002,
+                                        dtype=torch.float64), rtol=1e-12)
+
+
 def test_dense_solve_promotes_f32_factor():
     """An f32 inverse applied to an f64 vector computes in f64, as JAX
     promotes (the f64 Solver on the mixed solver's f32 preconditioner)."""

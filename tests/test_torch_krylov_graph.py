@@ -152,7 +152,8 @@ def test_each_k_is_captured_once_then_replayed(monkeypatch, counters):
     assert fake.warmups == fake.captures == r1.iters and fake.replays == 0
     assert dict(counters) == {"hymls.gmres.eager": r1.iters,
                               "hymls.gmres.graph_captures": r1.iters,
-                              "hymls.gmres.iters": r1.iters}
+                              "hymls.gmres.iters": r1.iters,
+                              "hymls.gmres.capped": 0}
     r2 = solve(op, prec, b2)
     # only the iterations the first solve did not reach are captured
     new = max(r2.iters - r1.iters, 0)
@@ -256,14 +257,16 @@ def test_cpu_tensors_and_allreduce_stay_eager(monkeypatch, counters):
     monkeypatch.setattr(krylov, "_GRAPHS", krylov.GmresGraphs(refuse))
     ref = solve(op, prec, b)
     assert dict(counters) == {"hymls.gmres.eager": ref.iters,
-                              "hymls.gmres.iters": ref.iters}
+                              "hymls.gmres.iters": ref.iters,
+                              "hymls.gmres.capped": 0}
     # a sum over one rank: the owner-sharded loop, eager on any device
     counters.clear()
     cache, fake = graphed(monkeypatch)
     r = solve(op, prec, b, allreduce=lambda t: t)
     assert r.converged and fake.made == 0 and not cache._spaces
     assert dict(counters) == {"hymls.gmres.eager": r.iters,
-                              "hymls.gmres.iters": r.iters}
+                              "hymls.gmres.iters": r.iters,
+                              "hymls.gmres.capped": 0}
 
 
 def test_a_failed_capture_leaves_its_key_to_the_eager_loop(monkeypatch,

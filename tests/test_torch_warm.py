@@ -12,7 +12,8 @@
     exactly the cold `compute` of the same matrix;
   * three `newton_step_warm` steps against `newton_step_warm_fn`
     (tests/test_precond.py::test_warm_newton_step_converges's setup):
-    true relres <= 1e-10, inner f32 iterations within 2.
+    true relres <= 1e-10, inner f32 iterations within 2;
+  * each gate's branch counted (`hymls.warm.polish` / `.fresh`).
 """
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ import hymls_tpu_torch as T
 from hymls_tpu_torch.core import dense as tdense
 from hymls_tpu_torch.solvers.mixed import IterativeRefinementSolver as TIR
 from hymls_tpu_torch.stencils import create_matrix, create_testvector
+from hymls_tpu_torch.utils import timings
 
 FACTOR_KEYS = ("A11inv", "G", "A21", "blkinv", "sc")
 INV_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -155,6 +157,37 @@ def test_recompute_matches_reference():
     assert torch.equal(Pt.apply_inverse(b), cold3.apply_inverse(b))
     Pj.recompute(K3)
     assert _rel(Pj.apply_inverse(b), Pt.apply_inverse(b)) <= 1e-9
+
+
+def _delta(after, before):
+    keys = ("hymls.warm.polish", "hymls.warm.fresh", "hymls.coarse.inverse",
+            "hymls.coarse.unknowns")
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+def test_recompute_counts_each_gate_branch():
+    """Each `warm_inv` counts the branch its gate took: after a modest
+    jump some inverses of the recompute are polished, after a large one
+    every one is fresh; the warm coarse inverse counts as a coarse
+    factor of its order either way."""
+    d, K, tv = _skew_stokes16()
+    rng = np.random.default_rng(4)
+    K2, K3 = _jumped(K, 1e-4, rng), _jumped(K, 0.9, rng)
+    P = T.Preconditioner(K, T.Params(d), testvector=tv,
+                         device="cpu").compute()
+    n = P.factors.full["coarse"]["inv"].shape[-1]
+    before = timings.counter_snapshot()
+    P.recompute(K2)
+    mid = timings.counter_snapshot()
+    P.recompute(K3)
+    after = timings.counter_snapshot()
+    warm, cold = _delta(mid, before), _delta(after, mid)
+    calls = warm["hymls.warm.polish"] + warm["hymls.warm.fresh"]
+    assert warm["hymls.warm.polish"] >= 1
+    assert cold == {"hymls.warm.polish": 0, "hymls.warm.fresh": calls,
+                    "hymls.coarse.inverse": 1, "hymls.coarse.unknowns": n}
+    assert warm["hymls.coarse.inverse"] == 1
+    assert warm["hymls.coarse.unknowns"] == n
 
 
 def test_recompute_is_cold_without_factors_or_with_a_border():
