@@ -48,7 +48,17 @@ raises on failure (nonzero exit, no result line):
      matvec
      at the probe's n = 2048 and 8192 and the ragged n = 2047 and 300
      (relative tolerance 1e-5, f32), with graph-replay device times
-     against torch.matmul at 2048 and 8192;
+     against torch.matmul at 2048 and 8192.  The sentinel gather K3 on
+     level 0's generic apply plans of the benchmark's 3-D and THCM
+     configurations at their size (plans built on the card, no
+     factorization): every index field equal to the plain version bit
+     for bit, in f32 and f64 and on a (4, L) block under vmap; at
+     `int_pos` and `node_src` in f32 the device time per launch by
+     CUDA-graph replay of 100 launches beside its bound (8 B of index
+     and 4 + 4 B of data an output at 3.35 TB/s), an empty launch and
+     the plain version; then the generic block apply on the card (the
+     3-D configuration at 16^3 in f64, B = 3, under torch.func.vmap)
+     against its columns, every gather of it on the kernel;
   4. probe path: the loop-pathology probe
      (hymls_tpu_torch.tools.loop_pathology_bench) at n = 2048, every
      variant, and its two-matvec variants at n = 8192 (beyond L2), with
@@ -421,6 +431,13 @@ TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 # cuBLAS
 MV_TOL = 1e-5
 MV_SIZES = (2048, 8192, 2047, 300)
+# the sentinel gather: the benchmark configurations whose level-0 plans
+# it is timed on, the fields timed, and the f64 block apply's columns
+# against the block (GEMVs become GEMMs: another summation order;
+# tests/test_torch_batched.py holds 1e-13 on the CPU)
+GATHER_CONFIGS = ("stokes3d_32_L2", "thcm64x64x8")
+GATHER_TIMED = ("int_pos", "node_src")
+GATHER_BLOCK_TOL = 1e-11
 
 
 def log(msg: str) -> None:
@@ -1029,6 +1046,154 @@ def check_dense_matvec(device):
     return rec
 
 
+def bench_config(name, device, dtype=torch.float32, **problem):
+    """The benchmark configuration `name` (portbench/configs, its
+    parameters only) on the generic apply, at another size where
+    `problem` says so: (K, its Preconditioner on `device` with plans
+    built, nothing factored)."""
+    from hymls_tpu_torch import Params, Preconditioner
+    from hymls_tpu_torch.stencils import create_matrix, create_testvector
+    with open(os.path.join(HERE, "portbench", "configs",
+                           name + ".json")) as f:
+        d = json.load(f)["params"]
+    d["Problem"].update(problem)
+    d["Preconditioner"]["Structured Apply"] = False
+    p = Params(d)
+    K = create_matrix(p)
+    return K, Preconditioner(K, p, testvector=create_testvector(p, K),
+                             dtype=dtype, device=device)
+
+
+def check_gather(device):
+    """Phase 3: the sentinel gather kernel against its plain version on
+    the card, at the generic apply's level-0 plans of the 3-D and THCM
+    cells, timed by CUDA-graph replay at `int_pos` and `node_src`; then
+    the block apply through it under vmap."""
+    from hymls_tpu_torch.ops.gather import (sentinel_gather,
+                                            sentinel_gather_reference)
+    from hymls_tpu_torch.tools.dia_spmv_sweep import (HBM_BYTES_PER_S,
+                                                      capture, replay_us)
+    from hymls_tpu_torch.utils import timings
+
+    def gathers():
+        c = timings.counter_snapshot()
+        return c.get("hymls.gather.kernel", 0), c.get("hymls.gather.plain", 0)
+
+    def applies():
+        c = timings.counter_snapshot()
+        return c.get("hymls.apply.graph_captures", 0) + \
+            c.get("hymls.apply.eager", 0)
+
+    rng = np.random.default_rng(23)
+    rec = {"timed": {}, "fields_held": 0, "per_apply": {}}
+    one = torch.zeros(1, device=device)
+    for name in GATHER_CONFIGS:
+        t0 = time.perf_counter()
+        K, P = bench_config(name, device)
+        dp, plan = P.generic_plans[0], P.plans[0]
+        n_sep = plan.n_sep
+        # each index field's source length: what `_apply_level` gathers
+        # it from
+        src_len = {
+            "int_pos": K.shape[0], "sep_pos_in_nodes": K.shape[0],
+            "sep_from_sd": dp["sd_sep_pos"].numel(),
+            "sd_sep_pos": n_sep, "blk_pos": n_sep, "vsum_pos": n_sep,
+            "w_pos": n_sep, "blk_inv_idx": dp["blk_pos"].numel(),
+            "vsum_slot": dp["vsum_pos"].numel(),
+            "ot_row_of": dp["w_vals"].shape[0],
+            "node_src": dp["int_pos"].numel() + n_sep}
+        log(f"gather {name}: level-0 plans in "
+            f"{time.perf_counter() - t0:.1f} s, n {K.shape[0]}, n_sep "
+            f"{n_sep}")
+        for field, L in src_len.items():
+            idx = dp[field]
+            if idx.numel() and not (int(idx.min()) >= 0
+                                    and int(idx.max()) <= L):
+                raise RuntimeError(f"gather {name} {field}: offsets "
+                                   f"outside [0, {L}]")
+            for dtype in (torch.float32, torch.float64):
+                src = torch.as_tensor(rng.standard_normal(L), dtype=dtype,
+                                      device=device)
+                block = torch.as_tensor(rng.standard_normal((4, L)),
+                                        dtype=dtype, device=device)
+                before = gathers()
+                got = sentinel_gather(src, idx)
+                got_b = torch.func.vmap(
+                    lambda v: sentinel_gather(v, idx))(block)
+                k, pl = (a - b for a, b in zip(gathers(), before))
+                torch.cuda.synchronize()
+                if not (torch.equal(got, sentinel_gather_reference(src, idx))
+                        and torch.equal(got_b, sentinel_gather_reference(
+                            block, idx))) or (k, pl) != (2, 0):
+                    raise RuntimeError(
+                        f"gather {name} {field} {dtype}: the kernel "
+                        f"disagrees with its plain version (or counted "
+                        f"{k} kernel, {pl} plain calls, not 2 and 0)")
+                rec["fields_held"] += 1
+        for field in GATHER_TIMED:
+            idx = dp[field]
+            src = torch.as_tensor(rng.standard_normal(src_len[field]),
+                                  dtype=torch.float32, device=device)
+            dev = replay_us({
+                "kernel": capture(lambda: sentinel_gather(src, idx)),
+                "plain": capture(
+                    lambda: sentinel_gather_reference(src, idx)),
+                "empty": capture(lambda: one.zero_())})
+            b_us = idx.numel() * (8 + 4 + 4) / HBM_BYTES_PER_S * 1e6
+            r = rec["timed"][f"{name} {field}"] = {
+                "outputs": idx.numel(), "src": src_len[field],
+                "device_us": dev["kernel"], "plain_us": dev["plain"],
+                "floor_us": dev["empty"], "bound_us": b_us,
+                "roofline_share": b_us / dev["kernel"]}
+            log(f"gather {name} {field} ({idx.numel()} outputs from "
+                f"{src_len[field]}): device us/launch kernel "
+                f"{r['device_us']:.3f}, plain version {r['plain_us']:.3f}, "
+                f"empty launch {r['floor_us']:.3f}; bound {b_us:.3f} "
+                f"(bytes), roofline share {r['roofline_share']:.3f}")
+        # the launches of one apply of the cell: its first apply runs
+        # the body twice, a warm-up and the capture
+        P.compute()
+        x = torch.as_tensor(rng.standard_normal(K.shape[0]),
+                            dtype=P.dtype, device=device)
+        before, a0 = gathers(), applies()
+        P.apply_fn(P.factors, x)
+        k, pl = (a - b for a, b in zip(gathers(), before))
+        runs = applies() - a0 + 1
+        want = sum(9 + 4 * p.apply_ot for p in P.plans)
+        rec["per_apply"][name] = k / runs
+        log(f"gather {name}: {k} kernel and {pl} plain gathers in the "
+            f"{runs} runs of its first apply ({P.max_level} levels), "
+            f"{k / runs:g} an apply (plan: {want})")
+        if pl or k != runs * want:
+            raise RuntimeError(f"gather {name}: the apply launched {k} "
+                               f"kernel and {pl} plain gathers in {runs} "
+                               f"runs, not {want} kernel gathers a run")
+        del P, dp
+        torch.cuda.empty_cache()
+
+    # the block apply on the card: vmap of the generic apply, one
+    # gather launch per gather for the whole block
+    _K, P = bench_config(GATHER_CONFIGS[0], device, torch.float64, nx=16,
+                         ny=16, nz=16)
+    P.compute()
+    X = torch.as_tensor(rng.standard_normal((3, _K.shape[0])),
+                        dtype=torch.float64, device=device)
+    before = gathers()
+    Y = P.apply_fn(P.factors, X)
+    block_k, block_pl = (a - b for a, b in zip(gathers(), before))
+    cols = torch.stack([P.apply_fn(P.factors, x) for x in X])
+    torch.cuda.synchronize()
+    err = float((Y - cols).abs().max() / cols.abs().max())
+    log(f"gather: f64 block apply (B = 3, 16^3, {P.max_level} levels) vs "
+        f"its columns {err:.3e} (tol {GATHER_BLOCK_TOL:g}); its capture "
+        f"made {block_k} kernel and {block_pl} plain gathers")
+    if not err <= GATHER_BLOCK_TOL or block_pl or block_k <= 0:
+        raise RuntimeError("gather: the block apply on the card is wrong or "
+                           "did not gather through the kernel")
+    rec.update(block_apply_rel_err=err, block_apply_launches=block_k)
+    return rec
+
+
 def drive_probe(device):
     """Phase 4: the loop-pathology probe; returns ms per iteration per
     variant at n = 2048, the n = 8192 two-matvec variants, and the
@@ -1065,17 +1230,45 @@ def drive_main_path(device, structured):
     S = IterativeRefinementSolver(K, params, testvector=tv, device=device)
     t_init = time.perf_counter() - t0
     S.compute()
-    res = S.newton_step(S.op64.vals, S.solver.op.vals, b)
+    with counted_factorize(S.precond) as gathers:
+        res = S.newton_step(S.op64.vals, S.solver.op.vals, b)
     x = res.x.cpu().numpy()
     relres = float(np.linalg.norm(K @ x - b) / np.linalg.norm(b))
-    return K, b, S, res, relres, t_init
+    return K, b, S, res, relres, t_init, gathers
+
+
+@contextlib.contextmanager
+def counted_factorize(P):
+    """The sentinel gather's launches inside the block, split into those
+    of `P.factorize` and the rest (the solve's applies, counted at
+    capture and warm-up): yields the dict it fills on exit."""
+    from hymls_tpu_torch.ops.gather import sentinel_gather
+
+    rec = {"factorize": 0}
+    factorize = P.factorize
+
+    def counted(*a, **kw):
+        n0 = sentinel_gather.launches
+        out = factorize(*a, **kw)
+        rec["factorize"] += sentinel_gather.launches - n0
+        return out
+
+    n0 = sentinel_gather.launches
+    P.factorize = counted
+    try:
+        yield rec
+    finally:
+        del P.factorize
+        rec["solve"] = sentinel_gather.launches - n0 - rec["factorize"]
 
 
 def reset_counts() -> None:
     """Every kernel's launch count set to 0, just before a path runs."""
     from hymls_tpu_torch.ops.dense_matvec import dense_matvec
     from hymls_tpu_torch.ops.dia_spmv import dia_matmat, dia_matvec
+    from hymls_tpu_torch.ops.gather import sentinel_gather
     dia_matvec.launches = dia_matmat.launches = dense_matvec.launches = 0
+    sentinel_gather.launches = 0
 
 
 @contextlib.contextmanager
@@ -1149,16 +1342,35 @@ def setup_line(rec) -> str:
 
 def check_main_path(device, structured, tag):
     """Drive one path of phases 5-6 with the launch counts set to 0
-    just before it; check its anchors; returns (K, b, S, launches)."""
+    just before it; check its anchors; returns (K, b, S, launches,
+    gathers): K1's launches and the sentinel gather's in the Newton
+    step, split into its factorization's and its solve's."""
     from hymls_tpu_torch import Solver
     from hymls_tpu_torch.ops.dia_spmv import dia_matvec
 
     reset_counts()
     t0 = time.perf_counter()
-    K, b, S, res, relres, t_init = drive_main_path(device, structured)
+    K, b, S, res, relres, t_init, gathers = drive_main_path(device,
+                                                            structured)
     torch.cuda.synchronize()
     launches = dia_matvec.launches
     P = S.precond
+    # the generic apply gathers 9 times a level, and twice in each of
+    # its two Householder transforms where the level has reflectors;
+    # the structured apply never
+    per_apply = sum(9 + 4 * p.apply_ot for p in P.plans)
+    log(f"{tag} newton_step: sentinel gather launches {gathers['solve']} "
+        f"in the solve ({per_apply} an apply on the generic path; "
+        f"captures and warm-ups count, replays do not), "
+        f"{gathers['factorize']} in the factorization")
+    if structured is False:
+        if gathers["solve"] <= 0 or gathers["solve"] % per_apply:
+            raise RuntimeError(f"the generic apply launched the sentinel "
+                               f"gather {gathers['solve']} times, not a "
+                               f"positive multiple of {per_apply}")
+    elif gathers["solve"]:
+        raise RuntimeError(f"the structured apply launched the sentinel "
+                           f"gather {gathers['solve']} times, not 0")
     log(f"{tag} path: n={K.shape[0]} nnz={K.nnz} "
         f"bands={len(S.op64.offsets)} coarse n={P.coarse_plan.n}; "
         f"structured program active {P._structured_active} "
@@ -1196,7 +1408,7 @@ def check_main_path(device, structured, tag):
     if abs(r64.iters - ANCHOR_F64) > 1 or not rel64 <= RELRES_OK:
         raise RuntimeError(f"{tag} f64 GMRES: {r64.iters} iterations, "
                            f"relres {rel64:.3e}")
-    return K, b, S, launches
+    return K, b, S, launches, gathers
 
 
 def device_events(fn):
@@ -1761,6 +1973,7 @@ def drive_direct(device):
     """Phase 14: 'Number of Levels' 0 on cavity64 in f64, plain and with
     the constant-pressure border; the dense factorization timed inside
     one compute()."""
+    import hymls_tpu_torch.core.dense as dense
     import hymls_tpu_torch.core.preconditioner as pc
     from hymls_tpu_torch import Preconditioner, Solver
     from hymls_tpu_torch.ops.dia_spmv import dia_matvec
@@ -1783,17 +1996,19 @@ def drive_direct(device):
             rhs = K @ x_ex
             S.set_border(ns)
         dense_s = []
-        orig = pc._dense_factor
+        orig = dense.dense_factor
 
         def timed(A):
             t, fac = wall_median(lambda: orig(A), 1)
             dense_s.append((tuple(A.shape), t))
             return fac
-        pc._dense_factor = timed
+        # the bordered factor calls it by the preconditioner's name, the
+        # plain one through `dense.dense_refactor`
+        pc._dense_factor = dense.dense_factor = timed
         try:
             t_compute, _ = wall_median(P.compute, 1)
         finally:
-            pc._dense_factor = orig
+            pc._dense_factor = dense.dense_factor = orig
         t_again, _ = wall_median(P.compute, 3)
         if tag == "bordered":
             y = P.apply_inverse_bordered(rhs, np.zeros(ns.shape[1]))[0]
@@ -3446,6 +3661,7 @@ def main(argv=None) -> int:
 
     from hymls_tpu_torch.ops import _build
     from hymls_tpu_torch.ops.dense_matvec import dense_matvec
+    from hymls_tpu_torch.ops.gather import sentinel_gather
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
 
@@ -3478,6 +3694,7 @@ def main(argv=None) -> int:
     dia_solver_err = check_dia_solver_shapes(device)
     matmat = check_dia_matmat(device, baseline)
     mv = check_dense_matvec(device)
+    gather = check_gather(device)
 
     # -- 4. probe path ----------------------------------------------------------
     reset_counts()
@@ -3491,12 +3708,14 @@ def main(argv=None) -> int:
                            "kernel")
 
     # -- 5. main path: structured apply ("Auto") -----------------------------
-    K, b, S, launches = check_main_path(device, "Auto", "structured")
+    K, b, S, launches, gathers_st = check_main_path(device, "Auto",
+                                                    "structured")
     shape, cres = coarse_inverse_residual(S.precond)
     log(f"coarse f32{list(shape)} inverse: max|I - A X| = {cres:.3e}")
 
     # -- 6. generic apply -------------------------------------------------------
-    _, _, Sg, launches_gen = check_main_path(device, False, "generic")
+    _, _, Sg, launches_gen, gathers_gen = check_main_path(device, False,
+                                                          "generic")
 
     # -- 7. times -------------------------------------------------------------
     times = time_paths({"structured": S, "generic": Sg}, b, rounds=2)
@@ -3715,6 +3934,30 @@ def main(argv=None) -> int:
         **{f"plain_call_ms_n{n}": mv[n]["plain_ms"] for n in MV_SIZES},
         "probe_ms_per_iter": probe,
         "probe_ms_per_iter_n8192": probe_big}, {
+        "name": "sentinel_gather", "route": "cuda",
+        "source": "hymls_tpu_torch/csrc/gather.cu",
+        "replaces": None,
+        "replaces_what": "no TPU kernel: the generic apply's "
+                         "torch.cat([v, 0])[idx] (fill, copy, index)",
+        "launches": gathers_gen["solve"],
+        "launches_by_path": {"structured": gathers_st["solve"],
+                             "generic": gathers_gen["solve"]},
+        "factorization_launches_by_path": {
+            "structured": gathers_st["factorize"],
+            "generic": gathers_gen["factorize"]},
+        "launches_are": "wrapper calls in the cavity64 Newton step's "
+                        "solve (phases 5-6), at capture, warm-up and "
+                        "eager calls; graph replays are not counted",
+        "launches_per": {
+            f"generic_apply_{k}": v
+            for k, v in gather["per_apply"].items()},
+        "fields_held": gather["fields_held"],
+        "block_apply_rel_err": gather["block_apply_rel_err"],
+        "bound_by": "bytes",
+        "times_are": "device time per launch by CUDA-graph replay of 100 "
+                     "launches in f32, at level 0 of the benchmark's 3-D "
+                     "and THCM plans (us)",
+        "sweep": gather["timed"]}, {
         "name": "dia_matmat", "route": "cuda",
         "source": "hymls_tpu_torch/csrc/dia_spmv.cu",
         "replaces": "hymls_tpu/ops/pallas_spmv.py:104",

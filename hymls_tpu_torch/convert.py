@@ -34,7 +34,7 @@ import torch
 from .core.preconditioner import (LEVEL_FIELDS_INT, LEVEL_FIELDS_BOOL,
                                   LEVEL_FIELDS_FLOAT, COARSE_FIELDS,
                                   SPLIT_FIELDS, DIRECT_FIELDS, APPLY_FIELDS,
-                                  clamp_sentinels)
+                                  finish_level_plan)
 from .solvers.deflation import Deflation
 
 
@@ -47,9 +47,9 @@ def plans_from_numpy(dplans: List[Dict[str, np.ndarray]],
                      dcoarse: Optional[Dict[str, np.ndarray]] = None, *,
                      device):
     """(level plans, coarse plan) as the port's plan tensors: index maps
-    int64 (sentinels clamped as the port's own plans are, the split maps
-    where a level carries them), masks bool, float fields in their own
-    dtype.  Works on the factorization plans and on the generic apply's
+    int64 (finished as the port's own plans are: sentinels clamped,
+    `ot_inv_idx` made into `ot_w`; the split maps where a level carries
+    them), masks bool, float fields in their own dtype.  Works on the factorization plans and on the generic apply's
     pruned ones.  The coarse plan is None where `dcoarse` is (the
     direct-Schur mode).  The reference's gather-strategy arrays
     (`*_skeys`, `*_spos`, `*_ckeys`) are TPU workarounds and are
@@ -65,10 +65,11 @@ def plans_from_numpy(dplans: List[Dict[str, np.ndarray]],
         for f in LEVEL_FIELDS_FLOAT:
             if f in d:
                 t[f] = torch.tensor(np.asarray(d[f]), device=device)
-        missing = set(APPLY_FIELDS) - set(t)
+        # `finish_level_plan` makes `ot_w` of `ot_inv_idx`
+        missing = {"ot_inv_idx", *APPLY_FIELDS} - {"ot_w"} - set(t)
         if missing:
             raise ValueError(f"level plan lacks {sorted(missing)}")
-        levels.append(clamp_sentinels(t))
+        levels.append(finish_level_plan(t))
     coarse = None if dcoarse is None else _index_dict(dcoarse, COARSE_FIELDS,
                                                       device)
     return levels, coarse

@@ -35,7 +35,8 @@ the 'Preconditioner Variant's live in the plans; 'Factor Precision' =
 
 The reference's sort/scatter permutation gathers (core/permute.py) are
 TPU workarounds; here every static map is a plain index gather, which
-the reference documents as bit-identical.  Index tensors are int64.
+the reference documents as bit-identical: on the card one launch of the
+sentinel gather kernel each (ops/gather.py).  Index tensors are int64.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ from ..partition.hierarchical import build_hierarchy
 from .. import native as _native
 from .plan import (LevelPlan, CoarsePlan, build_level_plan,
                    build_coarse_plan, SMALL_ENTRY)
+from ..ops.gather import sentinel_gather
 from ..ops.spmv import DiaOperator
 from ..utils.timings import count, prof
 from .apply_graph import ApplyGraphs, _tensors
@@ -77,14 +79,10 @@ from .dense import (inv_newton as _inv, inv_chain as _inv_chain,
 # small tensor helpers
 # ---------------------------------------------------------------------------
 
-def _ext(v):
-    """Append the 0.0 sentinel slot."""
-    return torch.cat([v, v.new_zeros(1)])
-
-
 def _pgather(dp, field, src_flat):
-    """Static gather ``_ext(src_flat)[dp[field]]``."""
-    return _ext(src_flat)[dp[field]]
+    """Static gather ``cat([src_flat, 0])[dp[field]]``: one launch of
+    the sentinel gather kernel on a CUDA tensor (ops/gather.py)."""
+    return sentinel_gather(src_flat, dp[field])
 
 
 def _bmm(A, x):
@@ -111,13 +109,12 @@ def _apply_ot(t, dp, enabled=True):
     groups without a reflector row get -I (reference
     HYMLS_Householder.cpp:353-363).  Gather form: each node belongs to
     at most one reflector row.  `enabled` False ('Apply Dropping' off:
-    the plan holds no reflector at all) is that -I without the gathers."""
+    the plan holds no reflector at all) is that -I without the gathers.
+    The weight of each node's reflector row is the plan's `ot_w`."""
     if not enabled:
         return -t
-    w_vals = dp["w_vals"]
-    dots = torch.sum(w_vals * _ext(t)[dp["w_pos"]], dim=1)
-    return 2.0 * _ext(w_vals.reshape(-1))[dp["ot_inv_idx"]] * \
-        _ext(dots)[dp["ot_row_of"]] - t
+    dots = torch.sum(dp["w_vals"] * _pgather(dp, "w_pos", t), dim=1)
+    return 2.0 * dp["ot_w"] * _pgather(dp, "ot_row_of", dots) - t
 
 
 # ---------------------------------------------------------------------------
@@ -139,16 +136,57 @@ COARSE_FIELDS = ("rows", "cols", "diag_entry", "fix_rows")
 APPLY_FIELDS = ("int_pos", "sd_sep_pos", "sep_pos_in_nodes",
                 "sep_from_sd", "blk_inv_idx", "blk_pos", "vsum_pos",
                 "vsum_slot", "node_src", "w_vals", "w_pos",
-                "ot_inv_idx", "ot_row_of")
+                "ot_row_of", "ot_w")
 
 
-def clamp_sentinels(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A level without non-Vsum blocks has an empty block solve, yet
-    its `blk_inv_idx` sentinel is 1 (core/plan.py); the reference's
-    gather clamps it onto the appended zero, a torch gather would raise.
-    Clamp it there once, when the plan is built."""
+def finish_level_plan(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A level plan's tensors as the numerics read them.  A level
+    without non-Vsum blocks has an empty block solve, yet its
+    `blk_inv_idx` sentinel is 1 (core/plan.py); the reference's gather
+    clamps it onto the appended zero, a torch gather would raise.  Clamp
+    it there once, when the plan is built.  Also replaces `ot_inv_idx`
+    by `ot_w`, the Householder weight of each separator node (`w_vals`
+    gathered by `ot_inv_idx`, 0 for a node without a reflector row), in
+    `w_vals`'s dtype: fixed by the plan, so gathered here once and not
+    in every `_apply_ot`.  Every offset the apply gathers with lies in
+    [0, L] of its source, checked here: the kernel reads 0 for any
+    other, where the plain version raises or wraps."""
     d["blk_inv_idx"] = d["blk_inv_idx"].clamp(max=d["blk_pos"].numel())
+    _check_offsets(d)
+    d["ot_w"] = _pgather(d, "ot_inv_idx", d["w_vals"].reshape(-1))
+    del d["ot_inv_idx"]
     return d
+
+
+def _offset_sources(d: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The length L of the source each index field of the apply (and
+    `ot_inv_idx`) gathers from in `_apply_level` / `_apply_ot`: the
+    level's n nodes, its n_sep separator nodes, or another field's
+    output."""
+    n, n_sep = d["node_src"].numel(), d["sep_pos_in_nodes"].numel()
+    return {"int_pos": n, "sep_pos_in_nodes": n,
+            "sep_from_sd": d["sd_sep_pos"].numel(),
+            "sd_sep_pos": n_sep, "blk_pos": n_sep, "vsum_pos": n_sep,
+            "w_pos": n_sep, "blk_inv_idx": d["blk_pos"].numel(),
+            "vsum_slot": d["vsum_pos"].numel(),
+            "ot_row_of": d["w_vals"].shape[0],
+            "ot_inv_idx": d["w_vals"].numel(),
+            "node_src": d["int_pos"].numel() + n_sep}
+
+
+def _check_offsets(d: Dict[str, torch.Tensor]) -> None:
+    """Raise unless each apply offset of the level plan `d` lies in
+    [0, L] of its source (one read back for the level)."""
+    fields = [(f, L) for f, L in _offset_sources(d).items()
+              if d[f].numel()]
+    if not fields:
+        return
+    ok = torch.stack([(d[f].min() >= 0) & (d[f].max() <= L)
+                      for f, L in fields]).cpu()
+    if not bool(ok.all()):
+        bad = [f for (f, _), good in zip(fields, ok.tolist()) if not good]
+        raise ValueError(f"level plan: offsets outside [0, L] of their "
+                         f"source in {bad}")
 
 
 #: the extra maps of the vsum-restricted f64 assembly
@@ -218,7 +256,7 @@ def _device_level(plan: LevelPlan, dtype, device,
     if split_maps:
         for k, v in (_vsum_split_arrays(plan) or {}).items():
             d[k] = torch.as_tensor(v, device=device)
-    return clamp_sentinels(d)
+    return finish_level_plan(d)
 
 
 def _device_coarse(cp: CoarsePlan, device) -> Dict[str, torch.Tensor]:
@@ -322,8 +360,8 @@ def _compute_level_split(vals, dp, apply_ot=True, store_dtype=None,
     T11v = -torch.matmul(QvT, W)
     T22v = torch.matmul(QvT, torch.matmul(A22, Qv))
 
-    nxt = _ext(T22v.reshape(-1))[dp["nxt22_v"]] + \
-        torch.sum(_ext(T11v.reshape(-1))[dp["nxt11_v"]], dim=1)
+    nxt = _pgather(dp, "nxt22_v", T22v.reshape(-1)) + \
+        torch.sum(_pgather(dp, "nxt11_v", T11v.reshape(-1)), dim=1)
     nxt = _drop_rel_diag(nxt, dp["next_rows"], dp["next_cols"],
                          dp["next_diag_entry"])
     factors = {"A11inv": A11inv, "G": G, "A21": A21s, "blkinv": blkinv,
@@ -474,8 +512,7 @@ def _apply_ot_multi(t, dp, enabled=True):
         return -t
     w_vals = dp["w_vals"]
     dots = torch.sum(w_vals[:, :, None] * _ext_rows(t)[dp["w_pos"]], dim=1)
-    w = _ext(w_vals.reshape(-1))[dp["ot_inv_idx"]]
-    return 2.0 * w[:, None] * _ext_rows(dots)[dp["ot_row_of"]] - t
+    return 2.0 * dp["ot_w"][:, None] * _ext_rows(dots)[dp["ot_row_of"]] - t
 
 
 def _eliminate_border(fac, dp, V, W, C):
@@ -1124,6 +1161,7 @@ class Preconditioner:
         for d in self.factor_plans:
             a = {k: d[k] for k in APPLY_FIELDS}
             a["w_vals"] = a["w_vals"].to(self.dtype)
+            a["ot_w"] = a["ot_w"].to(self.dtype)
             self.generic_plans.append(a)
         if self.max_level == 0:
             self.extra_plan = {

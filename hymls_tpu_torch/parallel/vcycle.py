@@ -19,7 +19,7 @@ from typing import Callable
 import torch
 
 from ..core.dense import dense_solve as _dense_solve
-from ..core.preconditioner import _apply_ot, _bmm, _ext
+from ..core.preconditioner import _apply_ot, _bmm, _pgather
 from . import collectives as C
 
 _SHARDED_FACTOR_KEYS = ("A11inv", "G", "A21")
@@ -60,26 +60,26 @@ def make_sharded_apply(precond, mesh) -> Callable:
 
     def level_fn(lev, b, factors, aplans):
         fac, dp, sh = factors["levels"][lev], aplans[lev], sharded[lev]
-        x1 = _bmm(fac["A11inv"], _ext(b)[dp["int_pos"]])
+        x1 = _bmm(fac["A11inv"], _pgather(dp, "int_pos", b))
         y2c = _bmm(fac["A21"], x1)
         if sh:
             y2c = C.all_gather(mesh, y2c)
-        y2 = torch.sum(_ext(y2c.reshape(-1))[dp["sep_from_sd"]], dim=1)
-        t = _apply_ot(_ext(b)[dp["sep_pos_in_nodes"]] - y2, dp, ots[lev])
-        yb = _bmm(fac["blkinv"], _ext(t)[dp["blk_pos"]])
-        y = _ext(yb.reshape(-1))[dp["blk_inv_idx"]]
-        rhs = _ext(t)[dp["vsum_pos"]]
+        y2 = torch.sum(_pgather(dp, "sep_from_sd", y2c.reshape(-1)), dim=1)
+        t = _apply_ot(_pgather(dp, "sep_pos_in_nodes", b) - y2, dp, ots[lev])
+        yb = _bmm(fac["blkinv"], _pgather(dp, "blk_pos", t))
+        y = _pgather(dp, "blk_inv_idx", yb.reshape(-1))
+        rhs = _pgather(dp, "vsum_pos", t)
         x_next = _dense_solve(factors["coarse"], rhs) \
             if lev + 1 == max_level else \
             level_fn(lev + 1, rhs, factors, aplans)
         n_vsum = dp["vsum_pos"].shape[0]
         y = torch.where(dp["vsum_slot"] < n_vsum,
-                        _ext(x_next)[dp["vsum_slot"]], y)
+                        _pgather(dp, "vsum_slot", x_next), y)
         x2 = _apply_ot(y, dp, ots[lev])
-        x1 = x1 - _bmm(fac["G"], _ext(x2)[dp["sd_sep_pos"]])
+        x1 = x1 - _bmm(fac["G"], _pgather(dp, "sd_sep_pos", x2))
         if sh:
             x1 = C.all_gather(mesh, x1)
-        return _ext(torch.cat([x1.reshape(-1), x2]))[dp["node_src"]]
+        return _pgather(dp, "node_src", torch.cat([x1.reshape(-1), x2]))
 
     def apply(factors, aplans, b):
         return level_fn(0, b, factors, aplans)
